@@ -56,3 +56,11 @@ def test_object_mesh():
     from tracer.geometry.obj import load_obj
 
     return load_obj(f"{REF}/test_object.obj")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (CUDA build of PyTorch and nvcc); "
+        "skips where torch.cuda.is_available() is false",
+    )
