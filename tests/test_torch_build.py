@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _share_cores import share_cores
 
 from tracer.accel import lbvh as jax_lbvh
 from tracer.accel import treelet as jax_treelet
@@ -33,6 +34,8 @@ from tracer_torch.geometry import obj, procedural
 from tracer_torch.geometry.device import _tri_table, upload_mesh
 from tracer_torch.scenes import registry
 from tracer_torch.scenes.build import build_scene
+
+share_cores()
 
 MESH_FIELDS = ("vertices", "normals", "indices", "mat_ids")
 BVH_FIELDS = ("node_min", "node_max", "left", "right", "first", "count",

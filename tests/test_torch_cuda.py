@@ -1,18 +1,27 @@
-"""Tests that need the card: the CUDA kernel of the super-tile hits stage
-against its plain-PyTorch twin, and the ported path on the card against the
-same path on the CPU. They skip where PyTorch sees no CUDA device.
+"""Tests that need the card: the CUDA kernels (super-tile hits B1, vertex-
+cotangent placement B2) against their plain-PyTorch twins, and the ported
+frame and gradient step on the card against the same on the CPU. They skip
+where PyTorch sees no CUDA device.
 
 This file imports nothing of JAX, so it also runs on a machine without it;
 there ``tests/conftest.py`` (which imports JAX) is left out:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerance: none — bit for bit throughout. The kernel performs the twin's
-float32 operations in the same order without FMA contraction
-(``tracer_torch/csrc/super_hits.cu``), the flat engine's cull and gates use
-only exactly rounded operations on both devices, and the integrator divides
-by Python numbers through ``vec.div`` and takes square roots through
-``vec.sqrt``, so CPU and card round alike.
+Tolerances:
+* The frame: none, bit for bit. B1 performs the twin's float32 operations
+  in the same order without FMA contraction (``tracer_torch/csrc/
+  super_hits.cu``), the flat engine's cull and gates use only exactly
+  rounded operations on both devices, and the integrator divides by Python
+  numbers through ``vec.div`` and takes square roots through ``vec.sqrt``,
+  so CPU and card round alike.
+* B2: bit for bit against its twin run on a CPU copy (both add each
+  vertex's rows in stream order) and between two launches.
+* The gradient: two card runs bit for bit. Card against CPU at rtol 1e-4
+  with an atol of 1e-5 of each leaf's largest magnitude, not bitwise:
+  the reductions over the lanes (the camera's broadcast to every ray, the
+  material product's backward) run in CUDA's and cuBLAS's summation
+  orders on the card and in the CPU's orders here.
 """
 
 from __future__ import annotations
@@ -23,10 +32,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import synthetic
+from chip_smoke import scatter_streams, synthetic
+from tracer_torch import convert
 from tracer_torch.accel import flat, lbvh, treelet
+from tracer_torch.diff import grad as G
 from tracer_torch.geometry.procedural import bumpy_blob
-from tracer_torch.kernels import super_hits
+from tracer_torch.kernels import scatter_vn, super_hits
 from tracer_torch.kernels.intersect import make_rays
 from tracer_torch.render import progressive
 from tracer_torch.scenes.build import build_scene
@@ -130,3 +141,59 @@ def test_bunny_frames_on_card_match_cpu(cuda):
     a, b = states["cpu"], states[str(cuda)]
     assert _bits_equal(a.accum, b.accum) and _bits_equal(a.seed_t, b.seed_t)
     assert a.iteration == b.iteration == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", scatter_streams(1, long_rows=50_000),
+                         ids=lambda c: c[0])
+def test_segment_place_kernel_matches_twin(cuda, case):
+    _, ids, vals, V = case
+    sids, perm = torch.sort(torch.as_tensor(ids, device=cuda), stable=True)
+    svals = torch.as_tensor(vals, device=cuda)[perm].contiguous()
+    launches, calls = scatter_vn.KERNEL_LAUNCHES, scatter_vn.REFERENCE_CALLS
+    k1 = scatter_vn.segment_place(sids, svals, V)
+    k2 = scatter_vn.segment_place(sids, svals, V)
+    torch.cuda.synchronize()
+    assert scatter_vn.KERNEL_LAUNCHES == launches + 2
+    assert scatter_vn.REFERENCE_CALLS == calls
+    want = scatter_vn.segment_place_reference(sids.cpu(), svals.cpu(), V)
+    assert _bits_equal(k1, k2) and _bits_equal(k1, want)
+
+
+@pytest.mark.cuda
+def test_segment_place_rejects_what_it_cannot_take(cuda):
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    vals = torch.zeros((4, 6), device=cuda)
+    with pytest.raises(ValueError):
+        scatter_vn.segment_place(ids.long(), vals, 3)
+    with pytest.raises(ValueError):
+        scatter_vn.segment_place(ids, vals[:, :5], 3)
+    with pytest.raises(ValueError):
+        scatter_vn.segment_place(ids.cpu(), vals, 3)
+
+
+@pytest.mark.cuda
+def test_bunny_gradient_on_card_matches_cpu(cuda):
+    """The 64x48 bunny gradient step (target zeros, the bench's settings):
+    two card runs are equal bit for bit, ran both kernels and neither
+    twin, and agree with the CPU's gradient at the stated tolerance."""
+    desc = get_scene("Project: Bunny")
+    desc = dataclasses.replace(desc, cfg=dataclasses.replace(
+        desc.cfg, width=64, height=48, loop="scan", max_depth=2))
+    grads = {}
+    for dev in ("cpu", cuda):
+        scene, cfg = build_scene(desc, dev)
+        target = torch.zeros((64 * 48, 3), device=dev)
+        counts = [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in (super_hits, scatter_vn)]
+        runs = [convert.grads_to_arrays(G.grad_scene(scene, cfg, target)) for _ in range(2)]
+        if dev is cuda:
+            for m, (launches, calls) in zip((super_hits, scatter_vn), counts):
+                assert m.KERNEL_LAUNCHES >= launches + 2 and m.REFERENCE_CALLS == calls
+            for k in G.FLOAT_LEAVES:
+                assert _bits_equal(torch.as_tensor(runs[0][k]), torch.as_tensor(runs[1][k])), k
+        grads[str(dev)] = runs[0]
+    for k in G.FLOAT_LEAVES:
+        want = grads["cpu"][k]
+        scale = float(np.abs(want).max()) if want.size else 0.0
+        np.testing.assert_allclose(grads[str(cuda)][k], want, rtol=1e-4, atol=1e-5 * scale,
+                                   err_msg=k)

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _share_cores import share_cores
 
 from tracer.accel import flat as jax_flat
 from tracer.accel import lbvh as jax_lbvh
@@ -32,6 +33,8 @@ from tracer_torch import convert
 from tracer_torch.accel import flat
 from tracer_torch.kernels import intersect
 from tracer_torch.kernels.intersect import make_rays
+
+share_cores()
 
 W, H = 41, 29  # deliberately unaligned with the 64x32 super-tiles
 

@@ -22,6 +22,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _share_cores import share_cores
 
 from tracer.accel import flat as jax_flat
 from tracer.kernels.intersect import Rays as JaxRays
@@ -38,6 +39,8 @@ from tracer_torch.render.camera import camera_rays, make_camera, pixel_uv
 from tracer_torch.render.scene import SceneConfig
 from tracer_torch.scenes.build import build_scene
 from tracer_torch.scenes.registry import get_scene
+
+share_cores()
 
 W, H = 64, 48
 

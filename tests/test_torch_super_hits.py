@@ -27,11 +27,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _share_cores import share_cores
 
 from chip_smoke import synthetic
 from tracer.kernels import super_hits as jax_super_hits
 
 from tracer_torch.kernels import super_hits
+
+share_cores()
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "anyhit"])

@@ -12,11 +12,34 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 BUILD_DIR = REPO_ROOT / "build" / "tracer_torch"
+CSRC = REPO_ROOT / "tracer_torch" / "csrc"
+
+# Every CUDA kernel of the port: Hopper only, no FMA contraction (so each
+# kernel rounds like its op-by-op PyTorch twin), a plain C interface in a
+# shared library, and ptxas's register and shared-memory report.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc_command() -> list[str]:
+    """``nvcc`` (from ``CUDA_HOME`` or ``PATH``) and ``NVCC_FLAGS``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = None
+    if CUDA_HOME is not None and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        found = os.path.join(CUDA_HOME, "bin", "nvcc")
+    found = found or shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return [found, *NVCC_FLAGS]
 
 
 def shared_library(name: str, command: list[str], sources: list[Path],

@@ -4,7 +4,9 @@
 package's ``Scene`` whose leaves are NumPy arrays (for example
 ``jax.tree.map(np.asarray, scene)``) and returns the port's ``Scene`` on
 ``device``, so both implementations can be run on the very same buffers.
-It only reads attributes and imports nothing of JAX.
+``grads_to_arrays`` reads a scene gradient of either package the same way,
+so the two can be compared leaf by leaf. Both only read attributes and
+import nothing of JAX.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from tracer_torch.accel.treelet import TreeletBvh
+from tracer_torch.diff.grad import FLOAT_LEAVES, leaf
 from tracer_torch.geometry.device import GeometryBuffers, MaterialTable
 from tracer_torch.render.camera import Camera
 from tracer_torch.render.scene import Scene, Uniforms
@@ -32,6 +35,19 @@ def treelet_from_arrays(tb, device) -> TreeletBvh:
         t_hi=_t(tb.t_hi, device),
         T=int(tb.T),
     )
+
+
+def grads_to_arrays(g) -> dict:
+    """The float leaves of a scene gradient as NumPy arrays, keyed by their
+    path in the JAX package's ``Scene`` pytree (``"camera.eye"``,
+    ``"geom.vertices"``, ...). Reads any object with those attributes whose
+    leaves are tensors or arrays: the port's ``grad_scene`` result or the
+    JAX package's."""
+    out = {}
+    for key in FLOAT_LEAVES:
+        x = leaf(g, key)
+        out[key] = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    return out
 
 
 def scene_from_arrays(obj, device) -> Scene:

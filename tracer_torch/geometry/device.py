@@ -1,19 +1,21 @@
 """Device-resident mesh buffers (port of ``tracer.geometry.device``).
 
-The forward path fetches hit attributes with one row gather from the
-per-triangle table. The JAX package's differentiable fetch
-(``fetch_tri_rows`` and its custom VJP) and its TPU-link upload packing are
-not part of this port yet.
+Hit attributes are fetched with one row gather from the per-triangle table
+(``fetch_tri_rows``), whose backward places the corner cotangents into the
+canonical vertex and normal buffers through the ``scatter_vn`` kernel. The
+JAX package's scatter modes and its TPU-link upload packing are TPU and
+sharding workarounds and are not ported.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from tracer_torch.geometry.obj import MeshData
+from tracer_torch.kernels.scatter_vn import scatter_add_vn
 
 # Shader ids — exact parity with the reference's WGSL constants
 # (e.g. w9e2.wgsl:7-15) and the UI enum (command.rs:39-47).
@@ -67,6 +69,55 @@ def _tri_table(verts, norms, idx, mat_ids):
     cols.append(torch.zeros((idx.shape[0], TRI_COLS - 19), dtype=torch.float32,
                             device=verts.device))
     return torch.cat(cols, dim=1)
+
+
+def refresh_tri_table(geom: GeometryBuffers) -> GeometryBuffers:
+    """Rebuild the derived (T, 20) attribute table after the vertices or
+    normals changed (an optimisation step or an FD probe). The table is a
+    cache of the canonical buffers and carries no gradient: gradients reach
+    the vertices and normals through ``fetch_tri_rows``."""
+    table = _tri_table(geom.vertices.detach(), geom.normals.detach(),
+                       geom.indices, geom.mat_ids)
+    return replace(geom, tri_table=table)
+
+
+def _corner_cotangents(g):
+    """(N, 20) row cotangent -> (N, 3, 6) per-corner [vertex xyz, normal xyz]."""
+    n = g.shape[0]
+    gv = g[:, 0:9].reshape(n, 3, 3)
+    gn = g[:, 9:18].reshape(n, 3, 3)
+    return torch.cat([gv, gn], dim=-1)
+
+
+def _scatter_add_vn(idx_n, gvn, V: int):
+    """(N, 3) corner ids + (N, 3, 6) cotangents -> (V, 6) sums."""
+    return scatter_add_vn(idx_n.reshape(-1), gvn.reshape(-1, 6), V)
+
+
+class _FetchTriRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vertices, normals, tri_table, idx, tri_c):
+        ctx.save_for_backward(idx, tri_c)
+        ctx.n_vertices = vertices.shape[0]
+        return tri_table[tri_c]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, tri_c = ctx.saved_tensors
+        dvn = _scatter_add_vn(idx[tri_c], _corner_cotangents(g), ctx.n_vertices)
+        return dvn[:, 0:3], dvn[:, 3:6], None, None, None
+
+
+def fetch_tri_rows(vertices, normals, tri_table, idx, tri_c):
+    """Differentiable per-hit attribute fetch: ``tri_table[tri_c]`` forward,
+    one stacked (V, 6) placement of the corner cotangents backward.
+
+    Contract (as in the JAX package): ``tri_table`` is consistent with
+    ``vertices``/``normals`` (``refresh_tri_table`` after changing them);
+    gradients flow to the vertices and normals, and the table, ``idx`` and
+    ``tri_c`` get none.
+    """
+    return _FetchTriRows.apply(vertices, normals, tri_table, idx, tri_c)
 
 
 def upload_mesh(mesh: MeshData, device) -> tuple[GeometryBuffers, MaterialTable, torch.Tensor]:

@@ -24,13 +24,10 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-from pathlib import Path
 
 import torch
 
-from tracer_torch._build import shared_library
+from tracer_torch._build import CSRC, nvcc_command, shared_library
 
 SUB = 128  # rays per sub-tile (8x16 pixels)
 NSUB = 16  # sub-tiles per super-tile
@@ -40,29 +37,14 @@ INF = 3.0e38  # the JAX package's _INF; any-hit lanes drop to -INF
 KERNEL_LAUNCHES = 0
 REFERENCE_CALLS = 0
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "super_hits.cu"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is not None and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("super_hits: nvcc not found (set CUDA_HOME)")
-    return found
+SOURCE = CSRC / "super_hits.cu"
 
 
 @functools.cache
 def build() -> tuple[ctypes.CDLL, str]:
     """Compile (first call only) and load the kernel library; returns the
     library and the compiler's output (register and shared-memory use)."""
-    path, log = shared_library("super_hits", [_nvcc(), *NVCC_FLAGS], [SOURCE])
+    path, log = shared_library("super_hits", nvcc_command(), [SOURCE])
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.super_hits_launch.restype = i32

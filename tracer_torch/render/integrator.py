@@ -8,10 +8,15 @@ the ``directional_n`` light with the ``plain_scaled`` ambient term
 cannot spawn a continuation ray take exactly one bounce
 (``_single_bounce``), which is the only bounce driver of this slice.
 
-Hit attributes are re-derived from the winning triangle id (one row gather
-from the per-triangle table, then the Möller test of that one triangle), as
-in the JAX package; its one-hot matmul fetches, a TPU workaround, are plain
-index gathers here.
+The path is differentiable as in the JAX package: the traversal runs on
+detached inputs under ``no_grad`` and returns integer ids, and every hit
+attribute is re-derived from the winning id (a row fetch, then the Möller
+test of that one triangle), so gradients reach the camera, the vertices and
+normals (through ``fetch_tri_rows``) and the materials. The material fetch
+is a one-hot product, whose backward is a product (deterministic on the
+card) where a gather's would be a scatter. TF32 is off
+(``tracer_torch/__init__.py``), so that float32 product is an exact
+selection on every device.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from tracer_torch.geometry.device import (
     SHADER_MIRROR,
     SHADER_TRANSMIT,
     SHADER_TRANSPARENT,
+    fetch_tri_rows,
 )
 from tracer_torch.kernels import intersect
 from tracer_torch.kernels.intersect import Rays
@@ -76,6 +82,16 @@ def _resolve_shader(shader_code: int, uniforms: Uniforms) -> int:
     return shader_code
 
 
+def _material_rows(mats, mat):
+    """(N, 11) material rows [diffuse, emission, specular, shininess, ior]
+    as a one-hot (N, M) x (M, 11) product."""
+    M = mats.diffuse.shape[0]
+    oh = (mat[:, None] == torch.arange(M, device=mat.device)).to(torch.float32)
+    pack = torch.cat([mats.diffuse, mats.emission, mats.specular,
+                      mats.shininess[:, None], mats.ior[:, None]], dim=1)
+    return oh @ pack
+
+
 def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
                   seed_t=None) -> Hit:
     """Closest hit against the scene's triangle mesh (treelet flat engine).
@@ -106,16 +122,23 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
     )
 
     geom = scene.geom
-    _, tri, conv = flat.closest_hit(
-        Rays(rays.o, rays.d, rays.tmin, best.t), scene.tb,
-        frame=(cfg.width, cfg.height), with_conv=True, seed_t=seed_t,
-    )
+    # The traversal carries no gradient: its inputs are detached and it
+    # returns integer ids (the accel buffers hold no grads either).
+    with torch.no_grad():
+        _, tri, conv = flat.closest_hit(
+            Rays(rays.o.detach(), rays.d.detach(), rays.tmin.detach(),
+                 best.t.detach()),
+            scene.tb, frame=(cfg.width, cfg.height), with_conv=True,
+            seed_t=None if seed_t is None else seed_t.detach(),
+        )
     ok = tri >= 0
-    tri_c = tri.long().clamp(0, geom.indices.shape[0] - 1)
-    row = geom.tri_table[tri_c]
+    T = geom.indices.shape[0]
+    tri_c = tri.long().clamp(0, T - 1)
+    row = fetch_tri_rows(geom.vertices, geom.normals, geom.tri_table,
+                         geom.indices, tri_c)
     v0, v1, v2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     n0, n1, n2 = row[:, 9:12], row[:, 12:15], row[:, 15:18]
-    mat = row[:, 18].long()
+    mat = row[:, 18].detach().long()
     # Re-derivation of t/beta/gamma from the winning id.
     t_d, beta, gamma, _ = intersect.triangle_t(
         Rays(rays.o, rays.d, torch.zeros_like(rays.tmin), rays.tmax),
@@ -138,18 +161,18 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         (n,), _resolve_shader(cfg.mesh_shader, scene.uniforms),
         dtype=torch.int32, device=dev,
     )
-    mats = scene.materials
+    mrow = _material_rows(scene.materials, mat)
     mesh_fields = dict(
         valid=torch.ones(n, dtype=torch.bool, device=dev),
         t=t_d,
         position=pos,
         normal=nrm,
         shader=shader,
-        albedo=mats.diffuse[mat],
-        emission=mats.emission[mat],
-        specular=vec.mean3(mats.specular[mat]),
-        shininess=mats.shininess[mat],
-        ior=mats.ior[mat],
+        albedo=mrow[:, 0:3],
+        emission=mrow[:, 3:6],
+        specular=vec.mean3(mrow[:, 6:9]),
+        shininess=mrow[:, 9],
+        ior=mrow[:, 10],
         is_mesh=torch.ones(n, dtype=torch.bool, device=dev),
         textured=torch.zeros(n, dtype=torch.bool, device=dev),
     )
