@@ -3,19 +3,22 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 1. probe    — a CUDA device must be visible; prints its name and power limit;
-2. build    — compiles the two kernels (``tracer_torch/csrc``: super-tile
-              hits B1 and vertex-cotangent placement B2) with nvcc for
-              sm_90a, in parallel, and prints their register and shared
-              memory use;
-3. kernel   — each kernel against its plain-PyTorch twin on the card. B1 in
-              both modes, on synthetic emissions (zero gate words, en < K,
-              dead -3e38 windows) and on the emissions of a real dragon
-              frame: ids equal and t equal bit for bit. B2 on synthetic
-              streams (``scatter_streams``) and on the real stream of a
-              dragon gradient step: two launches equal bitwise, equal
-              bitwise to the twin run on a CPU copy (the same sequential
-              order), and within the float32 bound of a length-L sum of
-              the twin on the card (atomics, no fixed order);
+2. build    — compiles the three kernels (``tracer_torch/csrc``: super-tile
+              hits B1, vertex-cotangent placement B2, treelet hits B3) with
+              nvcc for sm_90a, in parallel, and prints their register and
+              shared memory use;
+3. kernel   — each kernel against its plain-PyTorch twin on the card. B1 and
+              B3 in both modes, on synthetic emissions (``synthetic``,
+              ``synthetic_tiles``: zero gate words, en = 0 and en < K, ids out
+              of range, dead windows, a stream stopped by its entry
+              distances, pre-occluded lanes) and on real ones (a dragon
+              frame for B1; bounce 2 of a W9 E1 frame and the occlusion
+              probe of a W9 E2 frame for B3): ids equal and t equal bit for
+              bit. B2 on synthetic streams (``scatter_streams``) and on the
+              real stream of a dragon gradient step: two launches equal
+              bitwise, equal bitwise to the twin run on a CPU copy (the same
+              sequential order), and within the float32 bound of a length-L
+              sum of the twin on the card (atomics, no fixed order);
 4. frame    — ``Project: Dragon`` at 800x450 (the 869,880-triangle stand-in,
               native LBVH) through 1 warm-up and 20 timed
               ``progressive.step`` frames, then checks: every frame ran B1
@@ -32,7 +35,22 @@ Phases (each raises on failure, so the script exits non-zero):
               bit on every leaf, and ``fd_check`` passes on the diffuse
               albedo; a 64x48 ``Project: Bunny`` gradient must agree with
               the JAX package's (``BUNNY_GRAD_REF``) and pass ``fd_check``
-              on a rigid z-translation of its vertices.
+              on a rigid z-translation of its vertices;
+6. path     — ``W9 E1 Bunny`` at 512x512 (path mode, depth 50, the 69,564-
+              triangle stand-in, the seeded environment of ``seeded_env``
+              for its missing HDRI) through 1 warm-up and 10 timed
+              ``progressive.step`` frames: ms/frame and primary Mpath/s; then
+              one frame with spies (bounces, B3 rounds per bounce, ray
+              segments, phase A's device time, B3's time per launch) and
+              one under ``torch.profiler`` (kernels, device busy time, idle
+              share). Checks: every frame ran B3 and never its twin, no lane
+              was truncated, the accumulator is finite and non-negative,
+              and a 32x32 frame agrees with the JAX package's numbers
+              (``PATH_REF``). Then ``W9 E2 Bunny``, 1 warm-up and 3 frames:
+              B3 must have run in any-hit mode (the holdout plane's
+              occlusion probe);
+7. times    — each kernel, its twin and (for B2) ``index_add_`` at the main
+              paths' shapes, beside its bound.
 
 Prints one JSON object of per-kernel results on the line before the last,
 and ``{"ok": true, "device": {...}}`` as the last line. Imports nothing of
@@ -83,6 +101,39 @@ BUNNY_GRAD_ZERO = ("materials.specular", "geom.tri_table")
 # yet another order. Each statistic is compared relative to its own
 # sum-of-|x| scale (the sum of squares to itself).
 BUNNY_GRAD_RTOL = 1e-4
+
+
+# The JAX package's render of W9 E1 Bunny at 32x32 (registry depth 50, the
+# seeded environment of ``seeded_env``) after two progressive steps
+# (tracer.render.progressive.step, on the CPU): the sum, the sum of squares
+# and the largest value of the accumulator, in float64.
+# ``tests/test_torch_path.py`` recomputes them from JAX, so they cannot go
+# stale. The port's CPU render meets them at PATH_RTOL.
+PATH_REF = dict(sum=96.71946799755096, sumsq=56.272532453645084, max=0.9304773807525635)
+PATH_RTOL = 1e-4
+
+
+def seeded_env(rgbe: bool, seed: int = 0, shape=(32, 64)) -> np.ndarray:
+    """An (H, W, 4) float32 environment map of random 8-bit texels from
+    numpy with a seed, standing in for the W9 rows' missing HDRIs; RGBE
+    maps get shared exponents 2^-8 .. 2^7."""
+    rs = np.random.RandomState(seed)
+    env = (rs.randint(0, 256, (*shape, 4)) / 255.0).astype(np.float32)
+    if rgbe:
+        env[..., 3] = (rs.randint(120, 136, shape) / 255.0).astype(np.float32)
+    return env
+
+
+def path_stats(accum) -> dict:
+    a = np.asarray(accum, np.float64)
+    return dict(sum=float(a.sum()), sumsq=float((a * a).sum()), max=float(a.max()))
+
+
+def path_errors(stats: dict, rtol: float = PATH_RTOL) -> list:
+    """The statistics of ``stats`` that miss ``PATH_REF`` by more than
+    ``rtol`` relative."""
+    return [f"{k}: {stats[k]!r} vs {v!r}" for k, v in PATH_REF.items()
+            if abs(stats[k] - v) > rtol * abs(v)]
 
 
 def grad_stats(arrays: dict) -> dict:
@@ -137,15 +188,13 @@ def compare(name, got, want):
     return err
 
 
-def synthetic(device, any_hit: bool, seed: int):
-    """Random triangles in 3 treelets of 1024 (the last partly empty), two
-    super-tiles, 12 emission slots with zero gate words, en < K, an id out of
-    range, unordered entry distances and dead windows."""
+def _synthetic_scene(rs, device, n: int):
+    """Random triangles in 3 treelets of 1024 (the last partly empty) and
+    ``n`` rays from around (0, 0, 3) towards them: (tb, o, d, tmin,
+    best_t) as numpy, the treelet table on ``device``."""
     from tracer_torch.accel import treelet
-    from tracer_torch.kernels.super_hits import SUPER
 
-    rs = np.random.RandomState(seed)
-    NT, T, n_super, KD = 3, 1024, 2, 12
+    NT, T = 3, 1024
     ntri = NT * T - 100
     c = rs.uniform(-1.0, 1.0, (ntri, 1, 3)).astype(np.float32)
     c[:, :, 2] *= 0.3
@@ -157,8 +206,8 @@ def synthetic(device, any_hit: bool, seed: int):
     t = lambda x: torch.as_tensor(x, device=device)
     qblocks, qbox = treelet.assemble_blocks(t(verts), t(idx), t(pids), t(valid))
     tb = treelet.TreeletBvh(qblocks=qblocks, qbox=qbox, t_lo=t(np.zeros((NT, 3), np.float32)),
-                            t_hi=t(np.zeros((NT, 3), np.float32)), T=T)
-    n = n_super * SUPER
+                            t_hi=t(np.zeros((NT, 3), np.float32)),
+                            top=t(np.zeros((1, 8, 8), np.float32)), T=T, depth=1)
     o = np.float32([0.0, 0.0, 3.0]) + rs.normal(0.0, 0.05, (n, 3)).astype(np.float32)
     tgt = rs.uniform(-1.1, 1.1, (n, 3)).astype(np.float32)
     tgt[:, 2] = 0.0
@@ -166,6 +215,20 @@ def synthetic(device, any_hit: bool, seed: int):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tmin = rs.uniform(0.0, 2.0, n).astype(np.float32)
     best_t = rs.uniform(2.5, 4.0, n).astype(np.float32)
+    return tb, o, d, tmin, best_t
+
+
+def synthetic(device, any_hit: bool, seed: int):
+    """Random triangles in 3 treelets of 1024 (the last partly empty), two
+    super-tiles, 12 emission slots with zero gate words, en < K, an id out of
+    range, unordered entry distances and dead windows."""
+    from tracer_torch.kernels.super_hits import SUPER
+
+    rs = np.random.RandomState(seed)
+    NT, n_super, KD = 3, 2, 12
+    n = n_super * SUPER
+    tb, o, d, tmin, best_t = _synthetic_scene(rs, device, n)
+    t = lambda x: torch.as_tensor(x, device=device)
     best_t[rs.rand(n) < 0.05] = -3.0e38
     best_pid = (np.where(rs.rand(n) < 0.1, 1.0, -1.0) if any_hit
                 else np.full(n, -1.0)).astype(np.float32)
@@ -180,6 +243,36 @@ def synthetic(device, any_hit: bool, seed: int):
     sh = lambda x: t(x.reshape(n_super, SUPER, *x.shape[1:]))
     return (tb, t(eids), t(enear), t(en), t(gm), sh(o), sh(d), sh(tmin),
             sh(best_t), sh(best_pid))
+
+
+def synthetic_tiles(device, any_hit: bool, seed: int):
+    """B3's inputs from numpy with a seed: the synthetic treelets above and 6
+    tiles of 128 rays with 8 emission slots each; one tile with ``en = 0``,
+    two with ``en < K``, ids out of range, a dead tile (the packet engine's
+    padding: far origin, empty window), a tile whose entry distances stop
+    its stream after two blocks, and in any-hit mode pre-occluded lanes and
+    a tile occluded from the start. Returns (tb, eids, en, o, d, tmin,
+    best_t, best_pid, enear)."""
+    from tracer_torch.kernels.treelet_hits import TILE
+
+    rs = np.random.RandomState(seed)
+    n_tiles, K = 6, 8
+    tb, o, d, tmin, best_t = _synthetic_scene(rs, device, n_tiles * TILE)
+    sh = lambda x: torch.as_tensor(x.reshape(n_tiles, TILE, *x.shape[1:]), device=device)
+    dead = slice(4 * TILE, 5 * TILE)
+    o[dead], d[dead], tmin[dead], best_t[dead] = 1.0e30, 1.0, 1.0, 0.0
+    best_pid = np.full(n_tiles * TILE, -1.0, np.float32)
+    if any_hit:
+        best_pid[rs.rand(n_tiles * TILE) < 0.1] = 1.0
+        best_pid[3 * TILE:4 * TILE] = 1.0
+    eids = rs.randint(0, tb.NT, (n_tiles, K)).astype(np.int32)
+    eids[0, 2], eids[1, 0] = 99, -5
+    eids[5] = [0, 0, 1, 2, 2, 1, 0, 1]  # the stream stops before blocks 1 and 2
+    en = np.array([K, 5, 0, K, 3, K], np.int32)
+    enear = np.zeros((n_tiles, K), np.float32)
+    enear[5, 2:] = 5.0  # past every window top
+    t = lambda x: torch.as_tensor(x, device=device)
+    return (tb, t(eids), t(en), sh(o), sh(d), sh(tmin), sh(best_t), sh(best_pid), t(enear))
 
 
 def frame_args(em, tb):
@@ -238,6 +331,155 @@ def check_segment_place(name, sids, svals, V) -> float:
     return err
 
 
+# The card's peaks for the bound of each kernel (the H100 SXM data sheet, at
+# 700 W): device memory 3.35 TB/s; float32 outside the tensor cores
+# 67 TFLOP/s. One Möller test (csrc/moller.cuh) is 38 float32 operations:
+# 3 dot products of 5, 6 products and 3 differences for the cross product,
+# 3 differences, 1 division, 1 subtraction and 3 products for t, beta and
+# gamma, 1 negation and 1 sum for the inside test.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS_PER_TEST = 38
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(n_bytes: float, ops: float) -> tuple[float, str]:
+    """The least time for the work: the larger of its bytes over the memory
+    rate and its operations over the float32 rate; and which one it is."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def b1_bound(args, visits: int) -> tuple[float, str]:
+    """B1 on one set of emissions: every input read once (the quarter
+    blocks that some live slot with a gate bit names), the output written
+    once, and 128 x TQ tests per (sub-tile, quarter) visit of the twin."""
+    tb, ids, enear, en, gm, o, d, tmin, bt, bp = args
+    TQ = tb.qblocks.shape[2]
+    live = (torch.arange(ids.shape[1], device=ids.device) < en[:, None]) & (gm != 0)
+    blocks = ids.clamp(0, tb.qblocks.shape[0] - 1)[live].unique().numel() * 16 * TQ * 4
+    n_bytes = blocks + nbytes(ids, enear, en, gm, o, d, tmin, bt, bp) + nbytes(bt, bp)
+    return bound_ms(n_bytes, visits * 128 * TQ * OPS_PER_TEST)
+
+
+def b3_bound(args, visits: int) -> tuple[float, str]:
+    """B3 on one round: every input read once (the blocks that some slot
+    below ``en`` names), the output written once, and 128 x T tests per
+    (tile, block) visit of the twin."""
+    tb, eids, en, o, d, tmin, bt, bp = args
+    live = torch.arange(eids.shape[1], device=eids.device) < en[:, None]
+    blocks = eids.clamp(0, tb.NT - 1)[live].unique().numel() * 16 * tb.T * 4
+    n_bytes = blocks + nbytes(eids, en, o, d, tmin, bt, bp) + nbytes(bt, bp)
+    return bound_ms(n_bytes, visits * 128 * tb.T * OPS_PER_TEST)
+
+
+def with_seeded_env(scene, desc, device):
+    from tracer_torch.render import texture
+
+    kind = texture.ENV_RGBE if desc.hdri_rgbe else texture.ENV_LDR
+    env = torch.as_tensor(seeded_env(desc.hdri_rgbe), device=device)
+    return dataclasses.replace(scene, env=texture.TextureBuf(data=env, kind=kind))
+
+
+def instrumented_step(scene, cfg, state) -> dict:
+    """One progressive step with spies on the path-mode layers: bounces,
+    ray segments (lanes with a non-empty window at each bounce's trace),
+    B3 rounds per bounce with their arguments, the CUDA-event span of each
+    phase A call and each B3 call, phase A's host time (it ends on a host
+    read of its loop condition, so the host clock brackets its device work
+    too) against the whole step's, any-hit rounds and truncated lanes. The
+    spies read the device, so this frame is not a timed one."""
+    from tracer_torch.accel import packet
+    from tracer_torch.render import integrator, progressive
+
+    rec = dict(bounces=0, segments=0, rounds=[], bad=0, any_hit_rounds=0, phase_a_host_ms=0.0)
+    ev_a, ev_b = [], []
+    orig = (integrator.trace_closest, packet._phase_a_chunk, packet._dispatch_hits,
+            integrator._paint_bad)
+
+    def timed(fn, events):
+        def run(*args, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*args, **kw)
+            e.record()
+            events.append((s, e))
+            return out
+        return run
+
+    phase_a = timed(orig[1], ev_a)
+
+    def phase_a_host(*args, **kw):
+        t = time.perf_counter()
+        out = phase_a(*args, **kw)
+        rec["phase_a_host_ms"] += (time.perf_counter() - t) * 1e3
+        return out
+
+    def trace(sc, c, rays, *args, **kw):
+        rec["bounces"] += 1
+        rec["segments"] += int((rays.tmax > rays.tmin).sum())
+        return orig[0](sc, c, rays, *args, **kw)
+
+    b3 = timed(orig[2], ev_b)
+
+    def dispatch(*args):
+        rec["rounds"].append((rec["bounces"] - 1, args))
+        rec["any_hit_rounds"] += int(bool(args[-1]))
+        return b3(*args)
+
+    def paint(result, bad):
+        rec["bad"] += int(bad.sum())
+        return orig[3](result, bad)
+
+    integrator.trace_closest, packet._phase_a_chunk = trace, phase_a_host
+    packet._dispatch_hits, integrator._paint_bad = dispatch, paint
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        progressive.step(scene, cfg, state)
+        torch.cuda.synchronize()
+        rec["frame_host_ms"] = (time.perf_counter() - t) * 1e3
+    finally:
+        (integrator.trace_closest, packet._phase_a_chunk, packet._dispatch_hits,
+         integrator._paint_bad) = orig
+    rec["phase_a_ms"] = sum(s.elapsed_time(e) for s, e in ev_a)
+    rec["b3_ms"] = [s.elapsed_time(e) for s, e in ev_b]
+    return rec
+
+
+def profile_step(step) -> dict:
+    """One call of ``step`` under ``torch.profiler``: kernels, device busy
+    time (the union of the device intervals), the traced span (first to
+    last event of any kind) and the idle share of it; B3's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return {}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    b3 = sum(e.time_range.end - e.time_range.start for e in dev if "treelet_hits" in e.name)
+    return dict(kernels=len(kernels), busy_ms=busy / 1e3, span_ms=span / 1e3,
+                idle=1.0 - busy / span, b3_ms=b3 / 1e3)
+
+
 def main() -> int:
     # 1. Probe.
     if not torch.cuda.is_available():
@@ -256,13 +498,13 @@ def main() -> int:
     from tracer_torch.accel import flat
     from tracer_torch.diff import grad as G
     from tracer_torch.geometry.device import refresh_tri_table
-    from tracer_torch.kernels import scatter_vn, super_hits
+    from tracer_torch.kernels import scatter_vn, super_hits, treelet_hits
     from tracer_torch.render import integrator, progressive
     from tracer_torch.scenes.build import build_scene
     from tracer_torch.scenes.registry import get_scene
 
     dev = tracer_torch.cuda_device()
-    kernels = (super_hits, scatter_vn)
+    kernels = (super_hits, scatter_vn, treelet_hits)
 
     def reset_counts():
         for mod in kernels:
@@ -291,6 +533,15 @@ def main() -> int:
             want = super_hits.hits2_reference(*args, any_hit)
             max_err = max(max_err, compare(
                 f"synthetic {'any-hit' if any_hit else 'closest'} seed {seed}", got, want))
+    log("[kernel vs twin] B3 synthetic emissions")
+    b3_err = 0.0
+    for any_hit in (False, True):
+        for seed in (0, 1):
+            *args, enear = synthetic_tiles(dev, any_hit, seed)
+            b3_err = max(b3_err, compare(
+                f"B3 synthetic {'any-hit' if any_hit else 'closest'} seed {seed}",
+                treelet_hits.hits(*args, any_hit, enear=enear),
+                treelet_hits.hits_reference(*args, any_hit, enear=enear)))
     log("[kernel vs twin] B2 synthetic streams")
     b2_err = 0.0
     for name, ids, vals, V in scatter_streams(0):
@@ -425,8 +676,11 @@ def main() -> int:
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    g_launches = {mod.__name__.split(".")[-1]: mod.KERNEL_LAUNCHES for mod in kernels}
+    g_launches = {mod.__name__.split(".")[-1]: mod.KERNEL_LAUNCHES
+                  for mod in (super_hits, scatter_vn)}
     g_ref_calls = sum(mod.REFERENCE_CALLS for mod in kernels)
+    if treelet_hits.KERNEL_LAUNCHES:
+        raise AssertionError("the gradient step ran the packet engine")
     ms_step = start.elapsed_time(end) / steps
     fb_mrays = 2 * cfg.width * cfg.height / (ms_step * 1e-3) / 1e6
     log(f"[grad] {steps} steps: {ms_step:.3f} ms/step (CUDA events), "
@@ -480,27 +734,174 @@ def main() -> int:
     log(f"[bunny grad] agrees with JAX at rtol {BUNNY_GRAD_RTOL}; fd_check vertex "
         f"z-translation (eps {1e-3 * extent:.4g}): ad {ad!r} fd {fd!r}")
 
-    # 5. Kernel and twin times at the main path's shapes (seeded frame).
+    # 6. Path mode: W9 E1 Bunny at full registry size, seeded environment.
+    pdesc = get_scene("W9 E1 Bunny")
+    t0 = time.perf_counter()
+    pscene, pcfg = build_scene(pdesc, dev)
+    pscene = with_seeded_env(pscene, pdesc, dev)
+    log(f"[path] {pdesc.name} {pcfg.width}x{pcfg.height}, max_depth {pcfg.max_depth}: "
+        f"{pscene.geom.indices.shape[0]} triangles, {pscene.tb.NT} treelets, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    if (pcfg.width, pcfg.height, pcfg.max_depth) != (512, 512, 50) \
+            or pscene.geom.indices.shape[0] != 69_564 or pcfg.mode != "path":
+        raise AssertionError("the W9 E1 frame is not at full size")
+    pstate = progressive.init_state(pcfg, dev)
+
+    # 6a. Main path: 1 warm-up + 10 timed frames, every one through B3.
+    reset_counts()
+    per_frame = []
+    progressive.step(pscene, pcfg, pstate)
+    torch.cuda.synchronize()
+    per_frame.append(treelet_hits.KERNEL_LAUNCHES)
+    frames = 10
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(frames):
+        progressive.step(pscene, pcfg, pstate)
+        per_frame.append(treelet_hits.KERNEL_LAUNCHES)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    p_launches, p_ref = treelet_hits.KERNEL_LAUNCHES, treelet_hits.REFERENCE_CALLS
+    if super_hits.KERNEL_LAUNCHES or scatter_vn.KERNEL_LAUNCHES:
+        raise AssertionError("the path frame ran a direct-mode or gradient kernel")
+    if min(np.diff([0] + per_frame)) < 1 or p_ref != 0:
+        raise AssertionError(f"a path frame did not run on B3 alone (launches {per_frame}, "
+                             f"twin calls {p_ref})")
+    p_ms = start.elapsed_time(end) / frames
+    log(f"[path] {frames} frames: {p_ms:.3f} ms/frame (CUDA events), "
+        f"{wall / frames * 1e3:.3f} ms/frame (host clock), primary "
+        f"{pcfg.width * pcfg.height / (p_ms * 1e3):.3f} Mpath/s; {card}")
+    log(f"[path] B3 launches {p_launches} over {frames + 1} frames (cumulative {per_frame}), "
+        f"twin calls {p_ref}")
+
+    # 6b. One more frame with spies on the layers (not timed above).
+    rec = instrumented_step(pscene, pcfg, pstate)
+    n_rounds = len(rec["rounds"])
+    log(f"[path] instrumented frame ({rec['frame_host_ms']:.3f} ms, host clock): "
+        f"{rec['bounces']} bounces, {n_rounds} B3 rounds "
+        f"({n_rounds / rec['bounces']:.2f} per bounce), {rec['segments']} ray segments "
+        f"({rec['segments'] / (p_ms * 1e3):.3f} M segments/s at the timed ms/frame); phase A "
+        f"{rec['phase_a_host_ms']:.3f} ms host clock "
+        f"({rec['phase_a_host_ms'] / rec['frame_host_ms']:.1%} of the frame), "
+        f"{rec['phase_a_ms']:.3f} ms CUDA-event span; "
+        f"B3 calls {sum(rec['b3_ms']):.3f} ms in all, "
+        f"{sum(rec['b3_ms']) / n_rounds:.4f} ms per launch; truncated lanes {rec['bad']}")
+    if rec["bad"] or rec["any_hit_rounds"]:
+        raise AssertionError("a lane was truncated, or W9 E1 ran an any-hit query")
+    acc = pstate.accum
+    if acc.shape != (pcfg.width * pcfg.height, 3) or not bool(torch.isfinite(acc).all()) \
+            or not bool((acc >= 0).all()) or not float(acc.max()) > 0:
+        raise AssertionError("path accumulator is not finite, non-negative and nonzero")
+    if pstate.iteration != frames + 2:
+        raise AssertionError(f"iteration {pstate.iteration} after {frames + 2} steps")
+
+    # 6c. B3 against its twin on a real round: bounce 2 of that frame.
+    (_, real), = [r for r in rec["rounds"] if r[0] == 1][:1]
+    tb_r, eids_r, _, en_r, o_r, d_r, tmin_r, bt_r, bp_r, _ = real
+    args_b3 = (tb_r, eids_r, en_r, o_r, d_r, tmin_r, bt_r, bp_r)
+    log(f"[kernel vs twin] B3 W9 E1 bounce 2: {eids_r.shape[0]} tiles, "
+        f"{float(en_r.float().mean()):.1f} blocks per tile (max {int(en_r.max())})")
+    b3_err = max(b3_err, compare("B3 W9 E1 bounce 2 closest", treelet_hits.hits(*args_b3, False),
+                                 treelet_hits.hits_reference(*args_b3, False)))
+
+    # 6d. The same frame under the profiler.
+    prof = profile_step(lambda: progressive.step(pscene, pcfg, pstate))
+    if prof:
+        log(f"[path] profiled frame: {prof['kernels']} kernels, device busy "
+            f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms trace (idle "
+            f"{prof['idle']:.1%}), B3 {prof['b3_ms']:.3f} ms; {card}")
+    else:
+        log("[path] the profiler recorded no device time")
+
+    # 6e. A 32x32 frame against the JAX package's numbers.
+    sdesc = dataclasses.replace(pdesc, cfg=dataclasses.replace(pdesc.cfg, width=32, height=32))
+    sscene, scfg = build_scene(sdesc, dev)
+    sst = progressive.render_progressive(with_seeded_env(sscene, sdesc, dev), scfg, 2)
+    stats = path_stats(sst.accum.cpu().numpy())
+    log(f"[path 32x32] {stats} (JAX: {PATH_REF})")
+    bad = path_errors(stats)
+    if bad:
+        raise AssertionError("the 32x32 path frame disagrees with the JAX package: " + "; ".join(bad))
+
+    # 6f. W9 E2 Bunny (the holdout plane's occlusion probe): 1 + 3 frames.
+    edesc = get_scene("W9 E2 Bunny")
+    escene, ecfg = build_scene(edesc, dev)
+    escene = with_seeded_env(escene, edesc, dev)
+    estate = progressive.init_state(ecfg, dev)
+    reset_counts()
+    progressive.step(escene, ecfg, estate)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(3):
+        progressive.step(escene, ecfg, estate)
+    end.record()
+    torch.cuda.synchronize()
+    e_wall = time.perf_counter() - t0
+    e_launches, e_ref = treelet_hits.KERNEL_LAUNCHES, treelet_hits.REFERENCE_CALLS
+    e_ms = start.elapsed_time(end) / 3
+    if e_launches < 4 or e_ref != 0:
+        raise AssertionError("the W9 E2 frames did not run on B3 alone")
+    erec = instrumented_step(escene, ecfg, estate)
+    log(f"[path E2] {ecfg.width}x{ecfg.height}, 3 frames: {e_ms:.3f} ms/frame (CUDA events), "
+        f"{e_wall / 3 * 1e3:.3f} ms/frame (host clock); B3 launches {e_launches} over 4 "
+        f"frames, twin calls {e_ref}; instrumented frame: {erec['bounces']} bounces, "
+        f"{len(erec['rounds'])} B3 rounds of which {erec['any_hit_rounds']} any-hit, phase A "
+        f"{erec['phase_a_host_ms']:.3f} of {erec['frame_host_ms']:.3f} ms (host clock), "
+        f"truncated lanes {erec['bad']}; {card}")
+    if not erec["any_hit_rounds"] or erec["bad"]:
+        raise AssertionError("W9 E2 ran no any-hit round of B3, or truncated a lane")
+    if not bool(torch.isfinite(estate.accum).all()) or not bool((estate.accum >= 0).all()):
+        raise AssertionError("the W9 E2 accumulator is not finite and non-negative")
+    (_, real_any), = [r for r in erec["rounds"] if r[1][-1]][:1]
+    args_any = tuple(real_any[i] for i in (0, 1, 3, 4, 5, 6, 7, 8))
+    b3_err = max(b3_err, compare("B3 W9 E2 occlusion probe any-hit",
+                                 treelet_hits.hits(*args_any, True),
+                                 treelet_hits.hits_reference(*args_any, True)))
+
+    # 7. Kernel, twin and library times at the main paths' shapes.
     em = flat.emissions(rays, scene.tb, frame, seed_t=seed)
     args = frame_args(em, scene.tb)
     super_hits.hits2(*args, False)
     kernel_ms = cuda_events_ms(lambda: super_hits.hits2(*args, False), 50)
-    super_hits.hits2_reference(*args, False)
+    b1_stats = {}
+    super_hits.hits2_reference(*args, False, stats=b1_stats)
     plain_ms = cuda_events_ms(lambda: super_hits.hits2_reference(*args, False), 2)
+    b1_bound_ms, b1_by = b1_bound(args, b1_stats["visits"])
     em0 = em_closest
     args0 = frame_args(em0, scene.tb)
     kernel0_ms = cuda_events_ms(lambda: super_hits.hits2(*args0, False), 50)
     plain0_ms = cuda_events_ms(lambda: super_hits.hits2_reference(*args0, False), 2)
-    log(f"[time] hits2 seeded frame: kernel {kernel_ms:.4f} ms, twin {plain_ms:.2f} ms; "
+    log(f"[time] hits2 seeded frame: kernel {kernel_ms:.4f} ms, twin {plain_ms:.2f} ms, "
+        f"bound {b1_bound_ms:.4f} ms ({b1_by}; {b1_stats['visits']} sub-tile x quarter tests); "
         f"unseeded frame: kernel {kernel0_ms:.4f} ms, twin {plain0_ms:.2f} ms; {card}")
     b2 = lambda: scatter_vn.segment_place(sids_d, svals_d, v_d)
     b2_twin = lambda: scatter_vn.segment_place_reference(sids_d, svals_d, v_d)
+    sids_l = sids_d.long()
+    b2_lib = lambda: torch.zeros((v_d, 6), dtype=torch.float32, device=dev).index_add_(
+        0, sids_l, svals_d)
     b2()
     b2_twin()
+    b2_lib()
     b2_ms = cuda_events_ms(b2, 20)
     b2_plain_ms = cuda_events_ms(b2_twin, 20)
-    log(f"[time] segment_place dragon gradient stream (M={sids_d.shape[0]}, V={v_d}): "
-        f"kernel {b2_ms:.4f} ms, twin {b2_plain_ms:.4f} ms; {card}")
+    b2_lib_ms = cuda_events_ms(b2_lib, 20)
+    m_rows = sids_d.shape[0]
+    b2_bound_ms, b2_by = bound_ms(m_rows * (4 + 24) + v_d * 24, m_rows * 6)
+    log(f"[time] segment_place dragon gradient stream (M={m_rows}, V={v_d}): "
+        f"kernel {b2_ms:.4f} ms, twin {b2_plain_ms:.4f} ms, index_add_ {b2_lib_ms:.4f} ms, "
+        f"bound {b2_bound_ms:.4f} ms ({b2_by}); {card}")
+    treelet_hits.hits(*args_b3, False)
+    b3_ms = cuda_events_ms(lambda: treelet_hits.hits(*args_b3, False), 20)
+    b3_stats = {}
+    treelet_hits.hits_reference(*args_b3, False, stats=b3_stats)
+    b3_plain_ms = cuda_events_ms(lambda: treelet_hits.hits_reference(*args_b3, False), 2)
+    b3_bound_ms, b3_by = b3_bound(args_b3, b3_stats["visits"])
+    log(f"[time] treelet_hits W9 E1 bounce 2 round: kernel {b3_ms:.4f} ms, twin "
+        f"{b3_plain_ms:.2f} ms, bound {b3_bound_ms:.4f} ms ({b3_by}; {b3_stats['visits']} "
+        f"tile x block visits, {b3_stats['visits'] * 128 * tb_r.T / (b3_ms * 1e9):.3f} "
+        f"T Moller tests/s); {card}")
 
     log(json.dumps({"kernels": [{
         "name": "super_hits.hits2",
@@ -511,6 +912,9 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": b1_bound_ms,
+        "bound_by": b1_by,
+        "library_ms": None,
     }, {
         "name": "scatter_vn.segment_place",
         "route": "cuda",
@@ -520,6 +924,21 @@ def main() -> int:
         "max_abs_err": b2_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,
+        "bound_ms": b2_bound_ms,
+        "bound_by": b2_by,
+        "library_ms": b2_lib_ms,
+    }, {
+        "name": "treelet_hits.hits",
+        "route": "cuda",
+        "source": "tracer_torch/csrc/treelet_hits.cu",
+        "replaces": "tracer/kernels/treelet_hits.py:160",
+        "launches": p_launches + e_launches,
+        "max_abs_err": b3_err,
+        "ms": b3_ms,
+        "plain_ms": b3_plain_ms,
+        "bound_ms": b3_bound_ms,
+        "bound_by": b3_by,
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

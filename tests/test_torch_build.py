@@ -171,8 +171,11 @@ def test_registry_matches_jax():
             db.camera, db.spheres, db.planes, db.tris)
         assert (da.selection1, da.selection2, da.bvh_leaf, da.ref_shader) == (
             db.selection1, db.selection2, db.bvh_leaf, db.ref_shader)
-        base = lambda p: None if p is None else p.rsplit("/", 1)[-1]
-        assert base(da.model) == base(db.model)
+        # Full asset paths: where the reference's assets are mounted, both
+        # packages must load the same files.
+        assert (da.model, da.hdri, da.hdri_rgbe, da.texture, da.model_scale) == (
+            db.model, db.hdri, db.hdri_rgbe, db.texture, db.model_scale)
+    assert registry.REF_RES == jax_registry.REF_RES
 
 
 @pytest.mark.parametrize("name", ["W1 E6", "W8 E3 Absorption",

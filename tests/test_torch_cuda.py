@@ -1,7 +1,7 @@
 """Tests that need the card: the CUDA kernels (super-tile hits B1, vertex-
-cotangent placement B2) against their plain-PyTorch twins, and the ported
-frame and gradient step on the card against the same on the CPU. They skip
-where PyTorch sees no CUDA device.
+cotangent placement B2, treelet hits B3) against their plain-PyTorch twins,
+and the ported frame, gradient step and path-mode frames on the card
+against the same on the CPU. They skip where PyTorch sees no CUDA device.
 
 This file imports nothing of JAX, so it also runs on a machine without it;
 there ``tests/conftest.py`` (which imports JAX) is left out:
@@ -17,6 +17,10 @@ Tolerances:
   so CPU and card round alike.
 * B2: bit for bit against its twin run on a CPU copy (both add each
   vertex's rows in stream order) and between two launches.
+* B3 and the path-mode frames: bit for bit. B3 shares B1's Möller test
+  (``csrc/moller.cuh``); the warps and the environment lookup take their
+  transcendentals in float64 and round them (``math/vec.py``), so the card
+  draws the same directions and samples the same texels as the CPU.
 * The gradient: two card runs bit for bit. Card against CPU at rtol 1e-4
   with an atol of 1e-5 of each leaf's largest magnitude, not bitwise:
   the reductions over the lanes (the camera's broadcast to every ray, the
@@ -32,12 +36,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import scatter_streams, synthetic
+from chip_smoke import scatter_streams, synthetic, synthetic_tiles, with_seeded_env
 from tracer_torch import convert
 from tracer_torch.accel import flat, lbvh, treelet
 from tracer_torch.diff import grad as G
 from tracer_torch.geometry.procedural import bumpy_blob
-from tracer_torch.kernels import scatter_vn, super_hits
+from tracer_torch.kernels import scatter_vn, super_hits, treelet_hits
 from tracer_torch.kernels.intersect import make_rays
 from tracer_torch.render import progressive
 from tracer_torch.scenes.build import build_scene
@@ -197,3 +201,52 @@ def test_bunny_gradient_on_card_matches_cpu(cuda):
         scale = float(np.abs(want).max()) if want.size else 0.0
         np.testing.assert_allclose(grads[str(cuda)][k], want, rtol=1e-4, atol=1e-5 * scale,
                                    err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "anyhit"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_treelet_kernel_matches_twin(cuda, any_hit, seed):
+    *args, enear = synthetic_tiles(cuda, any_hit, seed)
+    launches = treelet_hits.KERNEL_LAUNCHES
+    kt, kp = treelet_hits.hits(*args, any_hit, enear=enear)
+    torch.cuda.synchronize()
+    assert treelet_hits.KERNEL_LAUNCHES == launches + 1
+    rt, rp = treelet_hits.hits_reference(*args, any_hit, enear=enear)
+    assert _bits_equal(kp, rp) and _bits_equal(kt, rt)
+    assert int((kp >= 0).sum()) > 150
+
+
+@pytest.mark.cuda
+def test_treelet_kernel_rejects_what_it_cannot_take(cuda):
+    tb, *rest, enear = synthetic_tiles(cuda, False, 0)
+    odd = dataclasses.replace(tb, qblocks=tb.qblocks[:, :, :6].contiguous())
+    with pytest.raises(ValueError):
+        treelet_hits.hits(odd, *rest, False)
+    with pytest.raises(ValueError):
+        treelet_hits.hits(tb, *rest, False, enear=enear[:, :3])
+    cpu_tb = dataclasses.replace(tb, qblocks=tb.qblocks.cpu())
+    with pytest.raises(ValueError):
+        treelet_hits.hits(cpu_tb, *rest, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,size", [("W9 E1 Bunny", 64), ("W9 E2 Bunny", 32)])
+def test_path_frames_on_card_match_cpu(cuda, name, size):
+    """Two path-mode progressive steps (seeded environment) give the same
+    accumulator on the card as on the CPU, and the card's frames ran B3
+    (in any-hit mode too for the holdout plane of W9 E2), never its twin."""
+    desc = get_scene(name)
+    desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=size, height=size))
+    accs = {}
+    for dev in ("cpu", cuda):
+        scene, cfg = build_scene(desc, dev)
+        scene = with_seeded_env(scene, desc, dev)
+        launches, calls = treelet_hits.KERNEL_LAUNCHES, treelet_hits.REFERENCE_CALLS
+        st = progressive.render_progressive(scene, cfg, 2)
+        if dev is cuda:
+            assert treelet_hits.KERNEL_LAUNCHES >= launches + 4
+            assert treelet_hits.REFERENCE_CALLS == calls
+        accs[str(dev)] = st.accum
+    assert _bits_equal(accs["cpu"], accs[str(cuda)])
+    assert float(accs["cpu"].max()) > 0

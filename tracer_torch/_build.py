@@ -43,13 +43,16 @@ def nvcc_command() -> list[str]:
 
 
 def shared_library(name: str, command: list[str], sources: list[Path],
-                   timeout: float = 600.0) -> tuple[Path, str]:
+                   timeout: float = 600.0,
+                   headers: tuple[Path, ...] = ()) -> tuple[Path, str]:
     """Build ``lib<name>-<hash>.so`` from ``sources`` with ``command``
-    (compiler and flags, without ``-o`` or inputs). Returns the library
-    path and the compiler's output ("" when the library already existed).
-    Raises ``RuntimeError`` with the compiler's output when it fails."""
+    (compiler and flags, without ``-o`` or inputs). ``headers`` are the
+    files the sources include: they are hashed, not compiled. Returns the
+    library path and the compiler's output ("" when the library already
+    existed). Raises ``RuntimeError`` with the compiler's output when it
+    fails."""
     h = hashlib.sha256("\0".join(command).encode())
-    for src in sources:
+    for src in (*sources, *headers):
         h.update(src.read_bytes())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if out.exists():

@@ -12,10 +12,11 @@ triangles through the super-tile hits kernel. Block rows:
 
 ``build_host`` (cut selection + 8-ary top-tree collapse) is NumPy and
 bit-identical to the JAX package's; ``assemble_blocks`` gathers the block
-table on the device in PyTorch. The flat engine reads only the quarter
-blocks, the quarter boxes and the treelet boxes, so that is what
-``TreeletBvh`` holds; the JAX package's matmul-form (MXU) table has no
-counterpart here.
+table on the device in PyTorch. The flat engine reads the quarter blocks,
+the quarter boxes and the treelet boxes; the packet engine walks the top
+tree and streams whole blocks, and block ``b`` is the four contiguous
+quarters ``qblocks[b*NQ:(b+1)*NQ]``, so ``TreeletBvh`` keeps one table for
+both. The JAX package's matmul-form (MXU) table has no counterpart here.
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ class TreeletBvh:
     qbox: torch.Tensor  # (NT, NQ, 6) f32 quarter-block AABBs [lo3, hi3]
     t_lo: torch.Tensor  # (NT, 3) f32 treelet root AABB lo
     t_hi: torch.Tensor  # (NT, 3) f32 treelet root AABB hi
+    top: torch.Tensor  # (R, 8, 8) f32 top tree: [lo3, hi3, ref (i32 bits), pad]
     T: int  # triangles per block
+    depth: int  # max top-tree descent depth (the packet walk's stack bound)
 
     @property
     def NT(self) -> int:
@@ -131,7 +134,9 @@ def from_host(host: TreeletHost, verts: torch.Tensor,
         qbox=qbox,
         t_lo=torch.as_tensor(host.t_lo, dtype=torch.float32, device=device),
         t_hi=torch.as_tensor(host.t_hi, dtype=torch.float32, device=device),
+        top=torch.as_tensor(host.top, dtype=torch.float32, device=device),
         T=T,
+        depth=int(host.depth),
     )
 
 

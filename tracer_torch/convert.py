@@ -3,7 +3,8 @@
 ``scene_from_arrays`` reads any object with the attribute names of the JAX
 package's ``Scene`` whose leaves are NumPy arrays (for example
 ``jax.tree.map(np.asarray, scene)``) and returns the port's ``Scene`` on
-``device``, so both implementations can be run on the very same buffers.
+``device``, analytic planes and environment map included, so both
+implementations can be run on the very same buffers.
 ``grads_to_arrays`` reads a scene gradient of either package the same way,
 so the two can be compared leaf by leaf. Both only read attributes and
 import nothing of JAX.
@@ -16,9 +17,10 @@ import torch
 
 from tracer_torch.accel.treelet import TreeletBvh
 from tracer_torch.diff.grad import FLOAT_LEAVES, leaf
-from tracer_torch.geometry.device import GeometryBuffers, MaterialTable
+from tracer_torch.geometry.device import GeometryBuffers, MaterialTable, Planes
 from tracer_torch.render.camera import Camera
 from tracer_torch.render.scene import Scene, Uniforms
+from tracer_torch.render.texture import TextureBuf
 
 
 def _t(a, device, dtype=torch.float32):
@@ -26,14 +28,16 @@ def _t(a, device, dtype=torch.float32):
 
 
 def treelet_from_arrays(tb, device) -> TreeletBvh:
-    """The quarter blocks, quarter boxes and treelet boxes of a treelet
-    BVH whose leaves are arrays."""
+    """The quarter blocks, quarter boxes, treelet boxes and top tree of a
+    treelet BVH whose leaves are arrays."""
     return TreeletBvh(
         qblocks=_t(tb.qblocks, device),
         qbox=_t(tb.qbox, device),
         t_lo=_t(tb.t_lo, device),
         t_hi=_t(tb.t_hi, device),
+        top=_t(tb.top, device),
         T=int(tb.T),
+        depth=int(tb.depth),
     )
 
 
@@ -51,14 +55,23 @@ def grads_to_arrays(g) -> dict:
 
 
 def scene_from_arrays(obj, device) -> Scene:
-    for kind, rows in (("spheres", obj.spheres.radius), ("planes", obj.planes.normal),
-                       ("triangles", obj.tris.shader)):
+    for kind, rows in (("spheres", obj.spheres.radius), ("triangles", obj.tris.shader)):
         if np.asarray(rows).shape[0]:
             raise NotImplementedError(f"analytic {kind} are not ported")
     if obj.geom is None or obj.tb is None:
         raise NotImplementedError("only mesh scenes on the treelet engine are ported")
-    cam, uni, g, m = obj.camera, obj.uniforms, obj.geom, obj.materials
+    cam, uni, g, m, p = obj.camera, obj.uniforms, obj.geom, obj.materials, obj.planes
     i32 = torch.int32
+    planes = None
+    if np.asarray(p.normal).shape[0]:
+        planes = Planes(
+            position=_t(p.position, device), normal=_t(p.normal, device),
+            tangent=_t(p.tangent, device), binormal=_t(p.binormal, device),
+            shader=_t(p.shader, device, i32), base_color=_t(p.base_color, device),
+            textured=_t(p.textured, device, i32),
+        )
+    env = None if obj.env is None else TextureBuf(
+        data=_t(obj.env.data, device), kind=int(obj.env.kind))
     return Scene(
         camera=Camera(
             eye=_t(cam.eye, device), target=_t(cam.target, device),
@@ -84,4 +97,6 @@ def scene_from_arrays(obj, device) -> Scene:
         ),
         light_indices=_t(obj.light_indices, device, i32),
         tb=treelet_from_arrays(obj.tb, device),
+        planes=planes,
+        env=env,
     )

@@ -20,10 +20,10 @@
 //     closer, in emission order; "infinity" is 3.0e38 (not IEEE inf);
 //   * any-hit: an occluded lane's bound drops to -3.0e38, its flag to 1, and
 //     the output t row is the input best t, unchanged.
-// Every float operation is spelled with a round-to-nearest intrinsic and
-// the file is built with -fmad=false, so nothing is contracted into an FMA
-// and the result equals the twin's op-by-op PyTorch evaluation. NaN from a
-// zero denominator fails every comparison, as it does there.
+// The per-triangle test is moller.cuh's (shared with treelet_hits.cu):
+// every float operation is a round-to-nearest intrinsic and the file is
+// built with -fmad=false, so the result equals the twin's op-by-op PyTorch
+// evaluation bit for bit.
 //
 // What bounds it on an H100: each visited emission moves one 16*TQ*4-byte
 // block (16 KB at TQ = 256) from device memory or L2 and, per gated
@@ -44,7 +44,11 @@
 
 #include <cstddef>
 
+#include "moller.cuh"
+
 namespace {
+
+using tracer_torch::kInf;
 
 constexpr int kSub = 128;              // rays per sub-tile (8x16 pixels)
 constexpr int kNSub = 16;              // sub-tiles per super-tile
@@ -52,7 +56,6 @@ constexpr int kSuper = kSub * kNSub;   // rays per super-tile
 constexpr int kRows = 16;              // feature rows per block
 constexpr int kRays = kSub / 32;       // rays per lane
 constexpr int kThreads = 32 * kNSub;   // one warp per sub-tile
-constexpr float kInf = 3.0e38f;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -60,12 +63,6 @@ __device__ __forceinline__ float warp_max(float v) {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   }
   return v;
-}
-
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
-                                      float by, float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
-                   __fmul_rn(az, bz));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -135,37 +132,12 @@ __global__ void __launch_bounds__(kThreads)
           pb[j] = kInf;
         }
         for (int c = 0; c < tq; ++c) {
-          const float v0x = blk[0 * tq + c], v0y = blk[1 * tq + c],
-                      v0z = blk[2 * tq + c];
-          const float e0x = blk[3 * tq + c], e0y = blk[4 * tq + c],
-                      e0z = blk[5 * tq + c];
-          const float e1x = blk[6 * tq + c], e1y = blk[7 * tq + c],
-                      e1z = blk[8 * tq + c];
-          const float pid = blk[9 * tq + c], valid = blk[10 * tq + c];
-          const float nx = blk[11 * tq + c], ny = blk[12 * tq + c],
-                      nz = blk[13 * tq + c], kk = blk[14 * tq + c];
+          const tracer_torch::Triangle tri = tracer_torch::load_triangle(blk, tq, c);
 #pragma unroll
           for (int j = 0; j < kRays; ++j) {
-            const float denom = dot3(nx, ny, nz, dx[j], dy[j], dz[j]);
-            const float inv = __fdiv_rn(1.0f, denom);
-            const float t = __fmul_rn(
-                __fsub_rn(kk, dot3(nx, ny, nz, ox[j], oy[j], oz[j])), inv);
-            const float sx = __fsub_rn(v0x, ox[j]);
-            const float sy = __fsub_rn(v0y, oy[j]);
-            const float sz = __fsub_rn(v0z, oz[j]);
-            const float nomx = __fsub_rn(__fmul_rn(sy, dz[j]), __fmul_rn(sz, dy[j]));
-            const float nomy = __fsub_rn(__fmul_rn(sz, dx[j]), __fmul_rn(sx, dz[j]));
-            const float nomz = __fsub_rn(__fmul_rn(sx, dy[j]), __fmul_rn(sy, dx[j]));
-            const float beta = __fmul_rn(dot3(nomx, nomy, nomz, e1x, e1y, e1z), inv);
-            const float gamma = __fmul_rn(-dot3(nomx, nomy, nomz, e0x, e0y, e0z), inv);
-            const bool ok = (beta >= 0.0f) && (gamma >= 0.0f) &&
-                            (__fadd_rn(beta, gamma) <= 1.0f) && (t >= tn[j]) &&
-                            (t < bt[j]) && (valid > 0.5f);
-            const float tc = ok ? t : kInf;
-            if (tc < tb[j] || (tc == tb[j] && pid < pb[j])) {
-              tb[j] = tc;
-              pb[j] = pid;
-            }
+            const float tc = tracer_torch::moller_t(tri, ox[j], oy[j], oz[j], dx[j],
+                                                    dy[j], dz[j], tn[j], bt[j]);
+            tracer_torch::fold_block_best(tc, tri.pid, tb[j], pb[j]);
           }
         }
 #pragma unroll

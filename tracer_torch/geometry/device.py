@@ -59,6 +59,19 @@ class MaterialTable:
     ior: torch.Tensor  # (M,) f32
 
 
+@dataclass(frozen=True)
+class Planes:
+    """Analytic planes with a basis for texturing (``w9e2.wgsl:383-404``)."""
+
+    position: torch.Tensor  # (P, 3) f32
+    normal: torch.Tensor  # (P, 3) f32
+    tangent: torch.Tensor  # (P, 3) f32
+    binormal: torch.Tensor  # (P, 3) f32
+    shader: torch.Tensor  # (P,) i32
+    base_color: torch.Tensor  # (P, 3) f32
+    textured: torch.Tensor  # (P,) i32: sample the bound texture for albedo
+
+
 def _tri_table(verts, norms, idx, mat_ids):
     """Per-triangle attribute rows gathered on the device: v0 v1 v2 (9),
     n0 n1 n2 (9), mat id (1), padding to TRI_COLS."""

@@ -1,5 +1,5 @@
-"""Ray containers and the triangle test (port of
-``tracer.kernels.intersect``, the parts the direct-mode mesh path uses).
+"""Ray containers, the plane and the triangle test (port of
+``tracer.kernels.intersect``, the parts the ported paths use).
 
 Same operation order as the JAX package, so the CPU results agree with it
 to the last bit wherever both round each operation to float32.
@@ -43,6 +43,14 @@ def make_rays(o, d, tmin=1.0e-5, tmax=5000.0) -> Rays:
         x, dtype=torch.float32, device=o.device
     ).expand(batch)
     return Rays(o=o, d=d, tmin=f(tmin), tmax=f(tmax))
+
+
+def plane_t(rays: Rays, position, normal):
+    """Infinite-plane hit distance; (t, valid) (``w9e2.wgsl:386-404``)."""
+    denom = _safe_denom(vec.dot(rays.d, normal))
+    t = vec.dot(position - rays.o, normal) / denom
+    valid = (t >= rays.tmin) & (t <= rays.tmax)
+    return t, valid
 
 
 def triangle_t(rays: Rays, v0, v1, v2, eps_denom: float = 0.0):

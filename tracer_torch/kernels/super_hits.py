@@ -38,13 +38,14 @@ KERNEL_LAUNCHES = 0
 REFERENCE_CALLS = 0
 
 SOURCE = CSRC / "super_hits.cu"
+HEADERS = (CSRC / "moller.cuh",)
 
 
 @functools.cache
 def build() -> tuple[ctypes.CDLL, str]:
     """Compile (first call only) and load the kernel library; returns the
     library and the compiler's output (register and shared-memory use)."""
-    path, log = shared_library("super_hits", nvcc_command(), [SOURCE])
+    path, log = shared_library("super_hits", nvcc_command(), [SOURCE], headers=HEADERS)
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.super_hits_launch.restype = i32
@@ -171,13 +172,15 @@ CHUNK = 512
 
 
 def hits2_reference(tb, eids, enear, en, gatemask, o, d, tmin, best_t,
-                    best_pid, any_hit: bool):
+                    best_pid, any_hit: bool, stats: dict | None = None):
     """Plain-PyTorch twin of ``hits2``: same arguments, same result.
 
     A loop over emission slots; at slot ``k`` every super-tile still in its
     stream tests, for each sub-tile whose gate bit is set and whose bound
     lies beyond ``enear[k]``, that sub-tile's rays against the block, then
     refreshes the sub-tile's bound and the super-tile's stream bound.
+    ``stats``, when given, receives the number of (sub-tile, quarter block)
+    tests under ``"visits"``.
     """
     global REFERENCE_CALLS
     REFERENCE_CALLS += 1
@@ -199,6 +202,7 @@ def hits2_reference(tb, eids, enear, en, gatemask, o, d, tmin, best_t,
     ub = bt.amax(dim=-1)  # (n_super, NSUB) per-sub-tile bound
     gub = torch.full((n_super,), INF, dtype=torch.float32, device=dev)
     live = torch.ones(n_super, dtype=torch.bool, device=dev)
+    visits = 0
     for k in range(KD):
         ek = enear[:, k]
         live = live & (k < en) & (ek < gub)
@@ -206,6 +210,7 @@ def hits2_reference(tb, eids, enear, en, gatemask, o, d, tmin, best_t,
             break
         run = live[:, None] & gated[:, k] & (ek[:, None] < ub)
         sup_i, sub_i = torch.nonzero(run, as_tuple=True)
+        visits += sup_i.shape[0]
         for a in range(0, sup_i.shape[0], CHUNK):
             si, s = sup_i[a:a + CHUNK], sub_i[a:a + CHUNK]
             upper = bt[si, s]
@@ -220,5 +225,7 @@ def hits2_reference(tb, eids, enear, en, gatemask, o, d, tmin, best_t,
                 bp[si, s] = torch.where(better, pid, bp[si, s])
             ub[si, s] = bt[si, s].amax(dim=-1)
         gub = ub.amax(dim=-1)
+    if stats is not None:
+        stats["visits"] = stats.get("visits", 0) + visits
     out_t = best_t if any_hit else bt.reshape(n_super, SUPER)
     return out_t, bp.reshape(n_super, SUPER)

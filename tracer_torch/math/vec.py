@@ -10,6 +10,11 @@ from __future__ import annotations
 import torch
 
 
+def vec3(x, y, z):
+    """Stack three (...,) components into a (..., 3) tensor."""
+    return torch.stack([x, y, z], dim=-1)
+
+
 def sum3(a):
     """Sum over the trailing axis of size 3, in the order (a0 + a1) + a2."""
     return a[..., 0] + a[..., 1] + a[..., 2]
@@ -40,6 +45,33 @@ def sqrt(x):
     float32 root (53 >= 2 * 24 + 2 bits).
     """
     return torch.sqrt(x.double()).to(x.dtype)
+
+
+def _via_f64(fn, *xs):
+    """``fn`` evaluated in float64 on float32 inputs, rounded to float32: the
+    same value on every device (PyTorch's float32 transcendentals differ
+    between its CPU and CUDA kernels in the last bits)."""
+    return fn(*(x.double() for x in xs)).to(xs[0].dtype)
+
+
+def acos(x):
+    return _via_f64(torch.acos, x)
+
+
+def sin(x):
+    return _via_f64(torch.sin, x)
+
+
+def cos(x):
+    return _via_f64(torch.cos, x)
+
+
+def atan2(y, x):
+    return _via_f64(torch.atan2, y, x)
+
+
+def exp2(x):
+    return _via_f64(torch.exp2, x)
 
 
 def length(a, keepdims: bool = False):

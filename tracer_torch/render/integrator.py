@@ -1,12 +1,20 @@
-"""Wavefront integrator, direct-mode mesh slice (port of
-``tracer.render.integrator``).
+"""Wavefront integrator (port of ``tracer.render.integrator``): the
+direct-mode mesh slice and path mode on a mesh with analytic planes.
 
-The whole W*H pixel wavefront advances together: closest hit against the
-triangle mesh through the flat treelet engine, the Lambertian shade under
-the ``directional_n`` light with the ``plain_scaled`` ambient term
-(project.wgsl), and the background colour on misses. Scenes whose shaders
-cannot spawn a continuation ray take exactly one bounce
-(``_single_bounce``), which is the only bounce driver of this slice.
+The whole W*H pixel wavefront advances together.
+
+* Direct mode: closest hit against the triangle mesh through the flat
+  treelet engine, the Lambertian shade under the ``directional_n`` light
+  with the ``plain_scaled`` ambient term (project.wgsl), and the background
+  colour on misses. Scenes whose shaders cannot spawn a continuation ray
+  take exactly one bounce (``_single_bounce``).
+* Path mode (``W9 E1``/``W9 E2``): per-pixel random jitter and streams
+  (``math.rng``), a multi-bounce ``while`` loop that stops when every lane
+  is done, analytic planes, the mesh through the packet engine, the
+  environment map (or the background colour) on misses, the path-traced
+  Lambertian without lights (emission gating and Russian roulette with
+  cosine-hemisphere continuation), and the holdout shader, whose ambient
+  occlusion probe is a mesh any-hit query.
 
 The path is differentiable as in the JAX package: the traversal runs on
 detached inputs under ``no_grad`` and returns integer ids, and every hit
@@ -16,7 +24,7 @@ normals (through ``fetch_tri_rows``) and the materials. The material fetch
 is a one-hot product, whose backward is a product (deterministic on the
 card) where a gather's would be a scatter. TF32 is off
 (``tracer_torch/__init__.py``), so that float32 product is an exact
-selection on every device.
+selection on every device. Path-mode gradients are not ported.
 """
 
 from __future__ import annotations
@@ -25,9 +33,10 @@ from dataclasses import dataclass, fields, replace
 
 import torch
 
-from tracer_torch.accel import flat
+from tracer_torch.accel import flat, packet
 from tracer_torch.geometry.device import (
     SHADER_GLOSSY,
+    SHADER_HOLDOUT,
     SHADER_LAMBERTIAN,
     SHADER_MIRROR,
     SHADER_TRANSMIT,
@@ -36,7 +45,8 @@ from tracer_torch.geometry.device import (
 )
 from tracer_torch.kernels import intersect
 from tracer_torch.kernels.intersect import Rays
-from tracer_torch.math import vec
+from tracer_torch.math import rng, sampling, vec
+from tracer_torch.render import texture as tex
 from tracer_torch.render.camera import camera_rays, pixel_uv
 from tracer_torch.render.scene import (
     FROM_SELECTION1,
@@ -82,6 +92,21 @@ def _resolve_shader(shader_code: int, uniforms: Uniforms) -> int:
     return shader_code
 
 
+def _update(best: Hit, closer, **new_fields) -> Hit:
+    """``best`` with ``new_fields`` taken on the lanes where ``closer``."""
+    out = {}
+    for f in fields(Hit):
+        cur = getattr(best, f.name)
+        new = new_fields.get(f.name)
+        if new is None:
+            out[f.name] = cur
+        elif new.ndim > closer.ndim:
+            out[f.name] = vec.where(closer, new, cur)
+        else:
+            out[f.name] = torch.where(closer, new, cur)
+    return Hit(**out)
+
+
 def _material_rows(mats, mat):
     """(N, 11) material rows [diffuse, emission, specular, shininess, ior]
     as a one-hot (N, M) x (M, 11) product."""
@@ -94,10 +119,15 @@ def _material_rows(mats, mat):
 
 def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
                   seed_t=None) -> Hit:
-    """Closest hit against the scene's triangle mesh (treelet flat engine).
+    """Closest hit over the analytic planes and the triangle mesh, as the
+    reference's sequential tmax-shrinking fold (``w8e3.wgsl:290-311``). The
+    mesh goes through the flat engine in direct mode and through the packet
+    engine in path mode (incoherent bounces defeat the flat engine's
+    frustums).
 
-    ``seed_t``: optional per-ray temporal upper-bound hint; exact whatever
-    its quality (see ``tracer_torch.accel.flat.closest_hit``).
+    ``seed_t``: optional per-ray temporal upper-bound hint for the flat
+    engine; exact whatever its quality (see
+    ``tracer_torch.accel.flat.closest_hit``).
     """
     n = rays.o.shape[0]
     dev = rays.o.device
@@ -121,16 +151,43 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         converged=torch.ones(n, dtype=torch.bool, device=dev),
     )
 
+    planes = scene.planes
+    for i in range(0 if planes is None else planes.normal.shape[0]):
+        p0 = planes.position[i]
+        nrm0 = planes.normal[i]
+        t, ok = intersect.plane_t(Rays(rays.o, rays.d, rays.tmin, best.t), p0, nrm0)
+        pos = rays.o + t[:, None] * rays.d
+        u = vec.dot(pos - p0, planes.tangent[i])
+        v = vec.dot(pos - p0, planes.binormal[i])
+        shader = _resolve_shader(int(planes.shader[i]), scene.uniforms)
+        best = _update(
+            best, ok,
+            valid=torch.ones(n, dtype=torch.bool, device=dev),
+            t=t,
+            position=pos,
+            normal=nrm0.expand(n, 3),
+            shader=torch.full((n,), shader, dtype=torch.int32, device=dev),
+            albedo=planes.base_color[i].expand(n, 3),
+            emission=z3,
+            uv=torch.stack([torch.abs(u), torch.abs(v)], dim=-1),
+            textured=(planes.textured[i] != 0).expand(n),
+            is_mesh=torch.zeros(n, dtype=torch.bool, device=dev),
+        )
+
     geom = scene.geom
     # The traversal carries no gradient: its inputs are detached and it
     # returns integer ids (the accel buffers hold no grads either).
     with torch.no_grad():
-        _, tri, conv = flat.closest_hit(
-            Rays(rays.o.detach(), rays.d.detach(), rays.tmin.detach(),
-                 best.t.detach()),
-            scene.tb, frame=(cfg.width, cfg.height), with_conv=True,
-            seed_t=None if seed_t is None else seed_t.detach(),
-        )
+        sub = Rays(rays.o.detach(), rays.d.detach(), rays.tmin.detach(),
+                   best.t.detach())
+        if cfg.mode == "direct":
+            _, tri, conv = flat.closest_hit(
+                sub, scene.tb, frame=(cfg.width, cfg.height), with_conv=True,
+                seed_t=None if seed_t is None else seed_t.detach(),
+            )
+        else:
+            _, tri, conv = packet.closest_hit(
+                sub, scene.tb, frame=(cfg.width, cfg.height), with_conv=True)
     ok = tri >= 0
     T = geom.indices.shape[0]
     tri_c = tri.long().clamp(0, T - 1)
@@ -162,7 +219,8 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         dtype=torch.int32, device=dev,
     )
     mrow = _material_rows(scene.materials, mat)
-    mesh_fields = dict(
+    best = _update(
+        best, ok,
         valid=torch.ones(n, dtype=torch.bool, device=dev),
         t=t_d,
         position=pos,
@@ -176,18 +234,18 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         is_mesh=torch.ones(n, dtype=torch.bool, device=dev),
         textured=torch.zeros(n, dtype=torch.bool, device=dev),
     )
-    out = {}
-    for f in fields(Hit):
-        cur = getattr(best, f.name)
-        new = mesh_fields.get(f.name)
-        if new is None:
-            out[f.name] = cur
-        elif new.ndim > ok.ndim:
-            out[f.name] = vec.where(ok, new, cur)
-        else:
-            out[f.name] = torch.where(ok, new, cur)
-    out["converged"] = out["converged"] & conv
-    return Hit(**out)
+    return replace(best, converged=best.converged & conv)
+
+
+def _mesh_only_anyhit(scene: Scene, cfg: SceneConfig, rays: Rays):
+    """Trimesh-only occlusion, ``intersect_trimesh_immediate_return`` as the
+    holdout shader uses it (``w9e2.wgsl:514-538``), through the packet
+    engine (path mode). Returns (blocked, converged)."""
+    with torch.no_grad():
+        srays = Rays(rays.o.detach(), rays.d.detach(), rays.tmin.detach(),
+                     rays.tmax.detach())
+        return packet.any_hit(srays, scene.tb, frame=(cfg.width, cfg.height),
+                              with_conv=True)
 
 
 def _sample_directional(cfg: SceneConfig, n: int, device):
@@ -243,6 +301,115 @@ def shade(scene, cfg, rays, hit):
     return color, conv_out
 
 
+def _shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state):
+    """w7e3/w8e3 path-traced Lambertian without lights: emission gating,
+    then a cosine-hemisphere continuation under Russian roulette
+    (``w8e3.wgsl:475-509``). Next-event estimation (area lights, the sun)
+    is not ported. Returns (color, new_rays, cont, factor', emit', state',
+    converged)."""
+    n_lanes = hit.t.shape[0]
+    dev = hit.t.device
+    if "area_mc" in cfg.lights or "directional" in cfg.lights:
+        raise NotImplementedError(f"next-event estimation ({cfg.lights}) is not ported")
+    brdf = vec.div(hit.albedo, PI)
+    conv = torch.ones(n_lanes, dtype=torch.bool, device=dev)
+    diffuse = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
+    ambient = vec.where(emit, hit.emission, 0.0) if cfg.emit_gating else hit.emission
+    if cfg.emission_factor:
+        ambient = ambient * factor
+    if not cfg.rr:
+        # w8e1-style terminal Lambertian: no indirect bounce.
+        cont = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
+        return diffuse + ambient, rays, cont, factor, emit, state, conv
+
+    factor_new = factor * brdf * PI
+    prob = vec.mean3(brdf)
+    step, state = rng.rnd(state)
+    cont = step < prob
+    ind_dir, state_ind = sampling.cosine_hemisphere(hit.normal, state)
+    state = torch.where(cont, state_ind, state)
+    factor_new = vec.where(cont, factor_new / torch.clamp_min(prob, 1e-12)[..., None],
+                           factor_new)
+    new_rays = Rays(
+        o=hit.position,
+        d=ind_dir,
+        tmin=torch.full((n_lanes,), cfg.eta, dtype=torch.float32, device=dev),
+        tmax=torch.full((n_lanes,), cfg.tmax, dtype=torch.float32, device=dev),
+    )
+    emit_new = torch.where(cont, False, emit)
+    return diffuse + ambient, new_rays, cont, factor_new, emit_new, state, conv
+
+
+def _shade_holdout(scene, cfg, rays, hit, factor, state):
+    """``holdout_shader`` (``w9e2.wgsl:514-538``): an ambient-occlusion
+    probe against the mesh; unoccluded lanes see the environment. Returns
+    (color, state', converged)."""
+    n_lanes = hit.t.shape[0]
+    dev = hit.t.device
+    nrm = vec.normalize(hit.normal, eps=1e-24)
+    ao_dir, state = sampling.cosine_hemisphere(nrm, state)
+    aoray = Rays(
+        o=hit.position,
+        d=ao_dir,
+        tmin=torch.full((n_lanes,), cfg.eta, dtype=torch.float32, device=dev),
+        tmax=torch.full((n_lanes,), cfg.tmax, dtype=torch.float32, device=dev),
+    )
+    blocked, conv = _mesh_only_anyhit(scene, cfg, aoray)
+    if scene.env is not None:
+        env = tex.environment_map(scene.env, vec.normalize(rays.d, eps=1e-24))
+    else:
+        env = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev).expand(n_lanes, 3)
+    color = vec.where(blocked, 0.0, env * factor)
+    return color, state, conv
+
+
+def shade_path(scene, cfg, rays, hit, factor, emit, state):
+    """Material dispatch of path mode (the WGSL ``shade`` switch,
+    ``w9e2.wgsl:436-466``) as masked branch blending over the shaders the
+    scene can produce: Lambertian and holdout. Lanes of any other shader
+    get the error colour. Returns (color, new_rays, cont, factor', emit',
+    state', converged)."""
+    n_lanes = hit.t.shape[0]
+    dev = hit.t.device
+    possible = set(cfg.possible_shaders)
+    if possible - {SHADER_LAMBERTIAN, SHADER_HOLDOUT}:
+        raise NotImplementedError(
+            f"shaders {sorted(possible - {SHADER_LAMBERTIAN, SHADER_HOLDOUT})} "
+            "are not ported in path mode")
+    sid = hit.shader
+    no = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
+    out = dict(
+        color=torch.tensor(ERROR_COLOR, dtype=torch.float32, device=dev).expand(n_lanes, 3),
+        rays=rays, cont=no, factor=factor, emit=emit, state=state,
+        conv=torch.ones(n_lanes, dtype=torch.bool, device=dev),
+    )
+
+    def merge(mask, c, nr, ct, f, e, s, cv):
+        r = out["rays"]
+        out["color"] = vec.where(mask, c, out["color"])
+        out["rays"] = Rays(
+            o=vec.where(mask, nr.o, r.o),
+            d=vec.where(mask, nr.d, r.d),
+            tmin=torch.where(mask, nr.tmin, r.tmin),
+            tmax=torch.where(mask, nr.tmax, r.tmax),
+        )
+        out["cont"] = torch.where(mask, ct, out["cont"])
+        out["factor"] = vec.where(mask, f, out["factor"])
+        out["emit"] = torch.where(mask, e, out["emit"])
+        out["state"] = torch.where(mask, s, out["state"])
+        out["conv"] = out["conv"] & (~mask | cv)
+
+    if SHADER_LAMBERTIAN in possible:
+        m = sid == SHADER_LAMBERTIAN
+        merge(m, *_shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state))
+    if SHADER_HOLDOUT in possible:
+        m = sid == SHADER_HOLDOUT
+        c, s, cv = _shade_holdout(scene, cfg, rays, hit, factor, state)
+        merge(m, c, rays, no, factor, emit, s, cv)
+    return (out["color"], out["rays"], out["cont"], out["factor"], out["emit"],
+            out["state"], out["conv"])
+
+
 # Shader ids that can respawn a continuation ray.
 _CONTINUATION_SHADERS = frozenset(
     {SHADER_MIRROR, SHADER_TRANSMIT, SHADER_GLOSSY, SHADER_TRANSPARENT}
@@ -255,12 +422,21 @@ def _single_bounce(cfg: SceneConfig) -> bool:
     )
 
 
-def bounce_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, seed_t=None):
-    """One bounce of the fragment-shader main loop (w8e3.wgsl:264-275) for
-    single-bounce scenes. Returns (radiance (N, 3), next seed (N,)): the
-    seed is the mesh hit distance, 0 where the lane missed."""
+def bounce_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0=None,
+                seed_t=None):
+    """The fragment-shader main loop (w8e3.wgsl:264-275) over the wavefront.
+    Returns (radiance (N, 3), next seed (N,)).
+
+    Single-bounce scenes take one bounce, and the seed is the mesh hit
+    distance (0 where the lane missed). Path mode runs the ``while`` loop
+    from the per-lane random streams ``state0``, and the seed is zeros.
+    """
     if not (_single_bounce(cfg) and cfg.max_depth >= 1):
-        raise NotImplementedError("only the single-bounce driver is ported")
+        if cfg.mode != "path" or cfg.loop != "while":
+            raise NotImplementedError(
+                f"the {cfg.loop!r} bounce loop in {cfg.mode!r} mode is not ported")
+        radiance = _path_loop(scene, cfg, rays0, state0)
+        return radiance, torch.zeros_like(radiance[:, 0])
     n = rays0.o.shape[0]
     dev = rays0.o.device
     hit = trace_closest(scene, cfg, rays0, seed_t=seed_t)
@@ -277,6 +453,52 @@ def bounce_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, seed_t=None):
     result = result + vec.where(live, color, 0.0)
     seed_next = torch.where(hit.valid & hit.is_mesh, hit.t, 0.0)
     return _paint_bad(result, bad), seed_next
+
+
+def _path_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0):
+    """The ``while`` loop: up to ``max_depth`` bounces, stopping as soon
+    as every lane is done (one host read of the done mask per bounce)."""
+    n = rays0.o.shape[0]
+    dev = rays0.o.device
+    rays = rays0
+    result = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    factor = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    emit = torch.ones(n, dtype=torch.bool, device=dev)  # hit_record_init
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    bad = torch.zeros(n, dtype=torch.bool, device=dev)  # traversal truncated
+    state = state0
+    depth = 0
+    while depth < cfg.max_depth and bool((~done).any()):
+        # Done lanes collapse their interval to empty, so the engines'
+        # alive-culling skips them.
+        rays = Rays(rays.o, rays.d, rays.tmin, torch.where(done, rays.tmin, rays.tmax))
+        hit = trace_closest(scene, cfg, rays)
+        bad = bad | (~done & ~hit.converged)
+        miss = ~hit.valid & ~done
+        if cfg.env_light and scene.env is not None:
+            bg = tex.environment_map(scene.env, vec.normalize(rays.d, eps=1e-24)) * factor
+        else:
+            bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev).expand(n, 3)
+        result = result + vec.where(miss, bg, 0.0)
+        live = hit.valid & ~done
+        color, new_rays, cont, factor2, emit2, state2, shade_conv = shade_path(
+            scene, cfg, rays, hit, factor, emit, state)
+        bad = bad | (live & ~shade_conv)
+        if cfg.firefly_clamp > 0.0:
+            color = torch.clamp_max(color, cfg.firefly_clamp)
+        result = result + vec.where(live, color, 0.0)
+        rays = Rays(
+            o=vec.where(live, new_rays.o, rays.o),
+            d=vec.where(live, new_rays.d, rays.d),
+            tmin=torch.where(live, new_rays.tmin, rays.tmin),
+            tmax=torch.where(live, new_rays.tmax, rays.tmax),
+        )
+        factor = vec.where(live, factor2, factor)
+        emit = torch.where(live, emit2, emit)
+        state = torch.where(live, state2, state)
+        done = done | miss | (live & ~cont)
+        depth += 1
+    return _paint_bad(result, bad)
 
 
 def _paint_bad(result, bad):
@@ -301,8 +523,32 @@ def primary_rays(scene: Scene, cfg: SceneConfig) -> Rays:
     )
 
 
+def _path_primary(scene: Scene, cfg: SceneConfig):
+    """Path-mode primary rays and random streams: each pixel's stream is
+    seeded by (launch index, iteration) and its first two draws jitter the
+    pixel by up to 1/height (``w8e3.wgsl:254-259``)."""
+    w, h = cfg.width, cfg.height
+    dev = scene.device
+    u, v = pixel_uv(w, h, device=dev)
+    n = w * h
+    state = rng.pixel_seed(torch.arange(n, dtype=torch.int64, device=dev),
+                           scene.uniforms.iteration)
+    j1, state = rng.rnd(state)
+    j2, state = rng.rnd(state)
+    jitter = vec.div(torch.stack([j1, j2], dim=-1), float(h))
+    rays = camera_rays(scene.camera, u, v, jitter)
+    return Rays(
+        rays.o, rays.d,
+        torch.full((n,), cfg.eta, dtype=torch.float32, device=dev),
+        torch.full((n,), cfg.tmax, dtype=torch.float32, device=dev),
+    ), state
+
+
 def render_sample(scene: Scene, cfg: SceneConfig):
     """One sample pass over the full W x H wavefront (no temporal seed)."""
+    if cfg.mode == "path":
+        rays, state = _path_primary(scene, cfg)
+        return bounce_loop(scene, cfg, rays, state)[0]
     return bounce_loop(scene, cfg, primary_rays(scene, cfg))[0]
 
 
@@ -310,7 +556,10 @@ def render_sample_seeded(scene: Scene, cfg: SceneConfig, seed_t):
     """``render_sample`` with temporal t-bound seeding: the flat engine's
     per-sub-tile break bounds start at last frame's depths. Returns
     (radiance, next_seed); the radiance equals the unseeded render's, since
-    lanes whose hint undershoots are re-traced by the repair pass."""
+    lanes whose hint undershoots are re-traced by the repair pass. Scenes
+    of more than one bounce are not seeded: their seed passes through."""
+    if not _single_bounce(cfg):
+        return render_sample(scene, cfg), seed_t
     return bounce_loop(scene, cfg, primary_rays(scene, cfg), seed_t=seed_t)
 
 

@@ -16,8 +16,9 @@ from typing import Optional
 import torch
 
 from tracer_torch.accel.treelet import TreeletBvh
-from tracer_torch.geometry.device import GeometryBuffers, MaterialTable
+from tracer_torch.geometry.device import GeometryBuffers, MaterialTable, Planes
 from tracer_torch.render.camera import Camera
+from tracer_torch.render.texture import TextureBuf
 
 # Sentinel shader values meaning "resolve from uniforms at trace time".
 FROM_SELECTION1 = -1
@@ -88,14 +89,16 @@ class SceneConfig:
 
 @dataclass(frozen=True)
 class Scene:
-    """The device state of one mesh scene on the ported path."""
+    """The device state of one mesh scene on the ported paths."""
 
     camera: Camera
     uniforms: Uniforms
     geom: GeometryBuffers
     materials: MaterialTable
     light_indices: torch.Tensor  # (L,) i32 emissive triangle ids
-    tb: Optional[TreeletBvh]  # treelet BVH of the flat engine
+    tb: Optional[TreeletBvh]  # treelet BVH of the flat and packet engines
+    planes: Optional[Planes] = None  # analytic planes (None: no planes)
+    env: Optional[TextureBuf] = None  # environment map (None: bg_color)
 
     @property
     def device(self) -> torch.device:

@@ -1,16 +1,18 @@
 """Scene building: descriptor -> device ``Scene`` (port of
-``tracer.scenes.build.build_scene`` for mesh rows on the treelet engine).
+``tracer.scenes.build.build_scene`` for mesh rows on the treelet engines).
 
 Loads the model (or its procedural stand-in), builds the LBVH with the
-native builder, cuts it into treelets, uploads the mesh and gathers the
-block table on the device. Rows the port does not cover yet raise
-``NotImplementedError`` before any work is done.
+native C++ code, cuts it into treelets, uploads the mesh and the analytic
+planes, gathers the block table on the device and reads the environment
+map. Rows the port does not cover yet raise ``NotImplementedError`` before
+any work is done.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import time
 
 import torch
@@ -18,7 +20,12 @@ import torch
 from tracer_torch.accel import lbvh
 from tracer_torch.accel import treelet as treelet_mod
 from tracer_torch.geometry import obj as obj_mod
-from tracer_torch.geometry.device import SHADER_LAMBERTIAN, upload_mesh
+from tracer_torch.geometry.device import (
+    SHADER_HOLDOUT,
+    SHADER_LAMBERTIAN,
+    Planes,
+    upload_mesh,
+)
 from tracer_torch.geometry.procedural import standin_for
 from tracer_torch.render.camera import make_camera
 from tracer_torch.render.scene import (
@@ -58,31 +65,58 @@ def _possible_shaders(desc: SceneDescriptor) -> tuple:
 
 
 def unsupported(desc: SceneDescriptor, cfg: SceneConfig) -> list[str]:
-    """Why this row is outside the ported slice ([] when it is inside)."""
+    """Why this row is outside the ported slices ([] when it is inside):
+    direct mode as ``Project: Dragon`` runs it, or path mode without lights
+    on a mesh and analytic planes with the Lambertian and holdout shaders
+    (``W9 E1``/``W9 E2``)."""
     why = []
     if desc.model is None:
         why.append("no triangle mesh")
-    if desc.spheres or desc.planes or desc.tris:
-        why.append("analytic primitives")
+    if desc.spheres or desc.tris:
+        why.append("analytic spheres or triangles")
     treelet = cfg.traversal == "bvh" or (
         cfg.traversal == "bsp" and cfg.bsp_execution == "fast")
     if not treelet:
         why.append(f"traversal {cfg.traversal!r} ({cfg.bsp_execution})")
-    if cfg.mode != "direct":
-        why.append(f"mode {cfg.mode!r}")
-    if any(k != "directional_n" for k in cfg.lights):
-        why.append(f"lights {cfg.lights}")
-    if cfg.shadows:
-        why.append("shadow rays")
-    if cfg.ambient != "plain_scaled":
-        why.append(f"ambient {cfg.ambient!r}")
-    if desc.texture or desc.hdri or cfg.plane_texture or cfg.env_light:
-        why.append("textures")
+    if desc.texture or cfg.plane_texture:
+        why.append("plane textures")
     if cfg.subdivs > 1:
         why.append(f"subdivs {cfg.subdivs}")
-    if set(cfg.possible_shaders) - {SHADER_LAMBERTIAN}:
-        why.append(f"shaders {cfg.possible_shaders}")
+    if cfg.mode == "direct":
+        if desc.planes:
+            why.append("analytic planes in direct mode")
+        if any(k != "directional_n" for k in cfg.lights):
+            why.append(f"lights {cfg.lights}")
+        if cfg.shadows:
+            why.append("shadow rays")
+        if cfg.ambient != "plain_scaled":
+            why.append(f"ambient {cfg.ambient!r}")
+        if desc.hdri or cfg.env_light:
+            why.append("environment map in direct mode")
+        if set(cfg.possible_shaders) - {SHADER_LAMBERTIAN}:
+            why.append(f"shaders {cfg.possible_shaders}")
+    elif cfg.mode == "path":
+        if cfg.lights != ("none",):
+            why.append(f"lights {cfg.lights} (next-event estimation)")
+        if cfg.loop != "while":
+            why.append(f"bounce loop {cfg.loop!r}")
+        if set(cfg.possible_shaders) - {SHADER_LAMBERTIAN, SHADER_HOLDOUT}:
+            why.append(f"shaders {cfg.possible_shaders}")
+    else:
+        why.append(f"mode {cfg.mode!r}")
     return why
+
+
+def load_environment(path: str, rgbe: bool):
+    """The environment map at ``path``; ``None`` (with a note on stderr)
+    when the file is missing, as in the JAX package: misses then take the
+    background colour. Image loaders are not ported."""
+    if not os.path.exists(path):
+        print(f"[build] texture '{path}' missing — scene falls back to the "
+              "background color (reference lists it in .MISSING_LARGE_BLOBS)",
+              file=sys.stderr)
+        return None
+    raise NotImplementedError(f"loading the image {path!r} is not ported")
 
 
 def load_mesh(path: str, scale: float = 1.0):
@@ -134,6 +168,15 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
     mark("upload")
     tb = treelet_mod.from_host(host, geom.vertices, geom.indices)
     mark("device_assembly")
+    planes = None
+    if desc.planes:
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+        i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=device)
+        p, nrm, tg, bn, sh, bc, txd = zip(*desc.planes)
+        planes = Planes(position=f32(p), normal=f32(nrm), tangent=f32(tg),
+                        binormal=f32(bn), shader=i32(sh), base_color=f32(bc),
+                        textured=i32([int(t) for t in txd]))
+    env = load_environment(desc.hdri, desc.hdri_rgbe) if desc.hdri else None
     scene = Scene(
         camera=make_camera(**desc.camera, device=device),
         uniforms=Uniforms(selection1=desc.selection1, selection2=desc.selection2),
@@ -141,6 +184,8 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
         materials=materials,
         light_indices=light_indices,
         tb=tb,
+        planes=planes,
+        env=env,
     )
     if timings is not None:
         marks["total"] = time.perf_counter() - t_start

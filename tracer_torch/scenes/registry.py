@@ -10,16 +10,17 @@ shader file whose behavior they encode.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Optional
 
 from tracer_torch.render.scene import FROM_SELECTION1, FROM_SELECTION2, SceneConfig
 
-# Asset root of the reference renderer's ``res/`` tree. Models named here
-# that do not exist (bunny, dragon) are replaced by procedural stand-ins at
-# build time; the stand-in choice keys on the file name only.
-REF_RES = os.environ.get("TRACER_REF_RES", "reference/res")
+# Asset root of the reference renderer's ``res/`` tree, the JAX package's
+# (``tracer/scenes/registry.py``), so both packages read the same files.
+# Models named here that do not exist (bunny, dragon) are replaced by
+# procedural stand-ins at build time; the stand-in choice keys on the file
+# name only.
+REF_RES = "/root/reference/res"
 
 BASIC_CAM = dict(eye=(2.0, 1.5, 2.0), target=(0.0, 0.5, 0.0), up=(0.0, 1.0, 0.0), constant=1.0, aspect=1.0)
 TEAPOT_CAM = dict(eye=(0.15, 1.5, 10.0), target=(0.15, 1.5, 0.0), up=(0.0, 1.0, 0.0), constant=2.5, aspect=1.0)
