@@ -11,14 +11,18 @@ Phases (each raises on failure, so the script exits non-zero):
               B3 in both modes, on synthetic emissions (``synthetic``,
               ``synthetic_tiles``: zero gate words, en = 0 and en < K, ids out
               of range, dead windows, a stream stopped by its entry
-              distances, pre-occluded lanes) and on real ones (a dragon
+              distances, pre-occluded lanes; ``lane_tiles``: tiles with 1,
+              31, 33 and 127 live lanes, a tile with emissions and no live
+              lane, lanes that die mid-stream) and on real ones (a dragon
               frame for B1; bounce 2 of a W9 E1 frame and the occlusion
               probe of a W9 E2 frame for B3): ids equal and t equal bit for
-              bit. B2 on synthetic streams (``scatter_streams``) and on the
-              real stream of a dragon gradient step: two launches equal
-              bitwise, equal bitwise to the twin run on a CPU copy (the same
-              sequential order), and within the float32 bound of a length-L
-              sum of the twin on the card (atomics, no fixed order);
+              bit. B2 on synthetic streams (``scatter_streams``: M below
+              one chunk and a multiple of it, segments on chunk edges and
+              across many chunks, V = 1) and on the real stream of a dragon
+              gradient step: two launches equal bitwise, equal bitwise to
+              the twin run on a CPU copy (the same fixed chunk order), and
+              within the float32 bound of a length-L sum of the twin on the
+              card (atomics, no fixed order);
 4. frame    — ``Project: Dragon`` at 800x450 (the 869,880-triangle stand-in,
               native LBVH) through 1 warm-up and 20 timed
               ``progressive.step`` frames, then checks: every frame ran B1
@@ -29,7 +33,9 @@ Phases (each raises on failure, so the script exits non-zero):
               the JAX package's render of it (summary numbers below);
 5. gradient — ``grad_scene`` on the same dragon (target zeros, as the JAX
               package's ``bench.py`` runs it) through 1 warm-up and 5 timed
-              steps, then checks: every step ran both kernels and neither
+              steps and one under ``torch.profiler`` (kernels, device busy
+              time, idle share, B1's and B2's device time), then checks:
+              every step ran both kernels and neither
               twin, every gradient leaf is finite, the vertex, normal,
               diffuse and eye gradients are nonzero, two steps agree bit for
               bit on every leaf, and ``fd_check`` passes on the diffuse
@@ -43,14 +49,18 @@ Phases (each raises on failure, so the script exits non-zero):
               one frame with spies (bounces, B3 rounds per bounce, ray
               segments, phase A's device time, B3's time per launch) and
               one under ``torch.profiler`` (kernels, device busy time, idle
-              share). Checks: every frame ran B3 and never its twin, no lane
+              share), and the live share of each of its B3 rounds.
+              Checks: every frame ran B3 and never its twin, no lane
               was truncated, the accumulator is finite and non-negative,
               and a 32x32 frame agrees with the JAX package's numbers
               (``PATH_REF``). Then ``W9 E2 Bunny``, 1 warm-up and 3 frames:
               B3 must have run in any-hit mode (the holdout plane's
               occlusion probe);
 7. times    — each kernel, its twin and (for B2) ``index_add_`` at the main
-              paths' shapes, beside its bound.
+              paths' shapes by CUDA events, beside its bound (for B3 two:
+              over the live lanes' tests, and over all 128 lanes of every
+              visit); B2 also by the profiler's device time, and it must not
+              be slower than ``index_add_``.
 
 Prints one JSON object of per-kernel results on the line before the last,
 and ``{"ok": true, "device": {...}}`` as the last line. Imports nothing of
@@ -172,6 +182,24 @@ def cuda_events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled_device_ms(fn, reps: int, key: str) -> float:
+    """Mean device milliseconds per call of ``fn`` from ``torch.profiler``
+    over ``reps`` calls: every kernel and memset the calls ran, without the
+    host's enqueue, which sets the CUDA-event time of back-to-back calls of
+    a short kernel. Raises unless a kernel whose name holds ``key`` ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not any(key in e.name for e in dev):
+        raise AssertionError(f"the profiler saw no kernel named like {key!r}")
+    return sum(e.time_range.end - e.time_range.start for e in dev) / 1e3 / reps
+
+
 def compare(name, got, want):
     """Kernel vs twin: pids equal and t bitwise equal. Returns max |diff|."""
     (kt, kp), (rt, rp) = got, want
@@ -188,10 +216,12 @@ def compare(name, got, want):
     return err
 
 
-def _synthetic_scene(rs, device, n: int):
+def _synthetic_scene(rs, device, n: int, plane: bool = False):
     """Random triangles in 3 treelets of 1024 (the last partly empty) and
     ``n`` rays from around (0, 0, 3) towards them: (tb, o, d, tmin,
-    best_t) as numpy, the treelet table on ``device``."""
+    best_t) as numpy, the treelet table on ``device``. ``plane``: prim 0
+    becomes a large triangle on z = 0 whose normal (0, 0, 1024) and plane
+    constant 0 make t exact for rays along -z."""
     from tracer_torch.accel import treelet
 
     NT, T = 3, 1024
@@ -199,6 +229,8 @@ def _synthetic_scene(rs, device, n: int):
     c = rs.uniform(-1.0, 1.0, (ntri, 1, 3)).astype(np.float32)
     c[:, :, 2] *= 0.3
     verts = (c + rs.normal(0.0, 0.08, (ntri, 3, 3))).astype(np.float32).reshape(-1, 3)
+    if plane:
+        verts[0:3] = [[-8.0, -8.0, 0.0], [24.0, -8.0, 0.0], [-8.0, 24.0, 0.0]]
     idx = np.arange(ntri * 3, dtype=np.int32).reshape(ntri, 3)
     pids = np.zeros((NT, T), np.int32)
     pids.reshape(-1)[:ntri] = rs.permutation(ntri)
@@ -275,6 +307,47 @@ def synthetic_tiles(device, any_hit: bool, seed: int):
     return (tb, t(eids), t(en), sh(o), sh(d), sh(tmin), sh(best_t), sh(best_pid), t(enear))
 
 
+def lane_tiles(device, any_hit: bool, seed: int):
+    """B3's inputs for the live-lane rule, from numpy with a seed: the
+    synthetic treelets with prim 0 a large triangle on z = 0, and 6 tiles of
+    128 rays with 8 emission slots each. Tiles 0-3 have 1, 31, 33 and 127
+    live lanes and en = 8, 5, 8, 3; their other lanes have an empty window
+    (tmin 5, best t 2) or, in any-hit mode, half of them are occluded
+    instead. Tile 4 has emissions and no live lane (empty windows, 16 of
+    them at +inf). In tile 5, 64 lanes start at z = 3 along -z with tmin 3:
+    slot 2 emits the big triangle's treelet, which they hit at exactly
+    t = 3, so closest lanes die there (bt reaches tmin); any-hit lanes die
+    at their first hit. Returns the tuple of ``synthetic_tiles``; the
+    closest-mode live tests are T x (1*8 + 31*5 + 33*8 + 127*3 + 128*3 +
+    64*5)."""
+    from tracer_torch.kernels.treelet_hits import TILE
+
+    rs = np.random.RandomState(seed)
+    n_tiles, K = 6, 8
+    tb, o, d, tmin, best_t = _synthetic_scene(rs, device, n_tiles * TILE, plane=True)
+    best_pid = np.full(n_tiles * TILE, -1.0, np.float32)
+    for tile, n_live in enumerate((1, 31, 33, 127, 0)):
+        dead = tile * TILE + np.sort(rs.permutation(TILE)[n_live:])
+        occluded = dead[1::2] if any_hit else dead[:0]
+        empty = np.setdiff1d(dead, occluded)
+        tmin[empty], best_t[empty] = 5.0, 2.0
+        best_pid[occluded] = 1.0
+    tmin[4 * TILE:4 * TILE + 16] = best_t[4 * TILE:4 * TILE + 16] = np.inf
+    axis = slice(5 * TILE, 5 * TILE + 64)
+    o[axis, :2] = rs.uniform(-1.0, 1.0, (64, 2)).astype(np.float32)
+    o[axis, 2], d[axis], tmin[axis], best_t[axis] = 3.0, [0.0, 0.0, -1.0], 3.0, 4.0
+    q = tb.qblocks.cpu().numpy().reshape(tb.NT, -1, *tb.qblocks.shape[1:])
+    holder = int(np.nonzero(((q[:, :, 9] == 0) & (q[:, :, 10] > 0.5)).any(axis=(1, 2)))[0][0])
+    others = [b for b in range(tb.NT) if b != holder]
+    eids = rs.randint(0, tb.NT, (n_tiles, K)).astype(np.int32)
+    eids[5, :3] = [others[0], others[1], holder]
+    en = np.array([K, 5, K, 3, K, K], np.int32)
+    enear = np.zeros((n_tiles, K), np.float32)
+    sh = lambda x: torch.as_tensor(x.reshape(n_tiles, TILE, *x.shape[1:]), device=device)
+    t = lambda x: torch.as_tensor(x, device=device)
+    return (tb, t(eids), t(en), sh(o), sh(d), sh(tmin), sh(best_t), sh(best_pid), t(enear))
+
+
 def frame_args(em, tb):
     return (tb, em.ids, em.enear, em.en, em.gm, em.o, em.d, em.tmin, em.bt0, em.bp0)
 
@@ -283,8 +356,11 @@ def scatter_streams(seed: int, long_rows: int = 200_000):
     """Unsorted (name, ids (M,) int32, payload (M, 6) float32, V) vertex-
     cotangent streams from numpy with a seed: duplicates with untouched
     vertices (V = 1000, not a multiple of 512; M = 3001, not a multiple of
-    anything), one segment of ``long_rows`` rows among short ones, and
-    V = 1."""
+    anything), one segment of ``long_rows`` rows (spanning many chunks of
+    ``scatter_vn.CHUNK_ROWS`` = 256) among short ones, V = 1, M below one
+    chunk, M a multiple of it, and segments that start or end exactly on a
+    chunk edge (once sorted: a segment of exactly chunk 1, one that starts
+    on edge 2 and one that ends on edge 5)."""
     rs = np.random.RandomState(seed)
     out = []
     V, M = 1000, 3001
@@ -294,6 +370,11 @@ def scatter_streams(seed: int, long_rows: int = 200_000):
     ids = np.concatenate([np.full(long_rows, 5), rs.randint(0, V, 4099)])
     out.append((f"segment of {long_rows}", rs.permutation(ids), V))
     out.append(("V = 1", np.zeros(513, np.int64), 1))
+    out.append(("M below a chunk", rs.randint(3, 60, 200), 64))
+    out.append(("M of 4 chunks", rs.randint(0, 300, 1024), 333))
+    counts = [2] * 128 + [256, 300, 468] + [3] * 100  # rows 256-511, 512-811, 812-1279
+    ids = np.repeat(np.arange(len(counts)), counts)
+    out.append(("segments on chunk edges", rs.permutation(ids), 300))
     return [(name, ids.astype(np.int32),
              (rs.standard_normal((ids.shape[0], 6)) * rs.choice([1e-3, 1.0, 30.0], (ids.shape[0], 1))
               ).astype(np.float32), V)
@@ -303,7 +384,7 @@ def scatter_streams(seed: int, long_rows: int = 200_000):
 def check_segment_place(name, sids, svals, V) -> float:
     """B2 against its twin on the card, for a sorted stream. Two launches
     must agree bitwise; the kernel must equal the twin run on a CPU copy
-    (the same sequential sum) bitwise, and lie within L * 2^-23 * sum |x|
+    (the same fixed chunk order) bitwise, and lie within L * 2^-23 * sum |x|
     of the twin on the card (atomics, no fixed order), L being each
     vertex's row count. Returns max |kernel - twin on the card|."""
     from tracer_torch.kernels import scatter_vn
@@ -365,15 +446,17 @@ def b1_bound(args, visits: int) -> tuple[float, str]:
     return bound_ms(n_bytes, visits * 128 * TQ * OPS_PER_TEST)
 
 
-def b3_bound(args, visits: int) -> tuple[float, str]:
+def b3_bound(args, tests: int) -> tuple[float, str]:
     """B3 on one round: every input read once (the blocks that some slot
-    below ``en`` names), the output written once, and 128 x T tests per
-    (tile, block) visit of the twin."""
+    below ``en`` names), the output written once, and ``tests`` Möller
+    tests: 128 x T per (tile, block) visit of the twin (the bound over all
+    lanes), or its ``live_tests`` (the bound over the work the function
+    needs)."""
     tb, eids, en, o, d, tmin, bt, bp = args
     live = torch.arange(eids.shape[1], device=eids.device) < en[:, None]
     blocks = eids.clamp(0, tb.NT - 1)[live].unique().numel() * 16 * tb.T * 4
     n_bytes = blocks + nbytes(eids, en, o, d, tmin, bt, bp) + nbytes(bt, bp)
-    return bound_ms(n_bytes, visits * 128 * tb.T * OPS_PER_TEST)
+    return bound_ms(n_bytes, tests * OPS_PER_TEST)
 
 
 def with_seeded_env(scene, desc, device):
@@ -450,10 +533,12 @@ def instrumented_step(scene, cfg, state) -> dict:
     return rec
 
 
-def profile_step(step) -> dict:
+def profile_step(step, keys: dict) -> dict:
     """One call of ``step`` under ``torch.profiler``: kernels, device busy
     time (the union of the device intervals), the traced span (first to
-    last event of any kind) and the idle share of it; B3's device time."""
+    last event of any kind) and the idle share of it; for each ``name:
+    substring`` of ``keys``, the device time of the kernels whose name holds
+    the substring, under ``name``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -475,9 +560,11 @@ def profile_step(step) -> dict:
     busy += cur_e - cur_s
     span = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
     kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-    b3 = sum(e.time_range.end - e.time_range.start for e in dev if "treelet_hits" in e.name)
-    return dict(kernels=len(kernels), busy_ms=busy / 1e3, span_ms=span / 1e3,
-                idle=1.0 - busy / span, b3_ms=b3 / 1e3)
+    out = dict(kernels=len(kernels), busy_ms=busy / 1e3, span_ms=span / 1e3,
+               idle=1.0 - busy / span)
+    for name, key in keys.items():
+        out[name] = sum(e.time_range.end - e.time_range.start for e in dev if key in e.name) / 1e3
+    return out
 
 
 def main() -> int:
@@ -535,13 +622,14 @@ def main() -> int:
                 f"synthetic {'any-hit' if any_hit else 'closest'} seed {seed}", got, want))
     log("[kernel vs twin] B3 synthetic emissions")
     b3_err = 0.0
-    for any_hit in (False, True):
-        for seed in (0, 1):
-            *args, enear = synthetic_tiles(dev, any_hit, seed)
-            b3_err = max(b3_err, compare(
-                f"B3 synthetic {'any-hit' if any_hit else 'closest'} seed {seed}",
-                treelet_hits.hits(*args, any_hit, enear=enear),
-                treelet_hits.hits_reference(*args, any_hit, enear=enear)))
+    for gen in (synthetic_tiles, lane_tiles):
+        for any_hit in (False, True):
+            for seed in (0, 1):
+                *args, enear = gen(dev, any_hit, seed)
+                b3_err = max(b3_err, compare(
+                    f"B3 {gen.__name__} {'any-hit' if any_hit else 'closest'} seed {seed}",
+                    treelet_hits.hits(*args, any_hit, enear=enear),
+                    treelet_hits.hits_reference(*args, any_hit, enear=enear)))
     log("[kernel vs twin] B2 synthetic streams")
     b2_err = 0.0
     for name, ids, vals, V in scatter_streams(0):
@@ -661,7 +749,10 @@ def main() -> int:
     G.grad_scene(scene, gcfg, target)
     scatter_vn.segment_place = place
     (sids_d, svals_d, v_d), = caught
-    log("[kernel vs twin] B2 dragon gradient stream")
+    named = torch.unique(sids_d)
+    runs = torch.diff(torch.cat([named.new_tensor([-1]), named, named.new_tensor([v_d])])) - 1
+    log(f"[kernel vs twin] B2 dragon gradient stream: {named.numel()} of {v_d} vertices named, "
+        f"{int(runs.sum())} not; longest unnamed runs {sorted(runs.tolist())[-3:]}")
     b2_err = max(b2_err, check_segment_place("dragon gradient step", sids_d, svals_d, v_d))
 
     # 5a. Main path, gradient step: 1 warm-up + 5 timed steps.
@@ -688,6 +779,16 @@ def main() -> int:
     log(f"[grad] kernel launches {g_launches} over {steps + 1} steps, twin calls {g_ref_calls}")
     if min(g_launches.values()) < steps + 1 or g_ref_calls != 0:
         raise AssertionError("the gradient step did not run on the kernels alone")
+    gprof = profile_step(lambda: G.grad_scene(scene, gcfg, target),
+                         {"b1_ms": "super_hits_kernel", "b2_ms": "_sums_kernel"})
+    if gprof:
+        log(f"[grad] profiled step: {gprof['kernels']} kernels, device busy "
+            f"{gprof['busy_ms']:.3f} ms of a {gprof['span_ms']:.3f} ms trace (idle "
+            f"{gprof['idle']:.1%}), B1 {gprof['b1_ms']:.4f} ms "
+            f"({gprof['b1_ms'] / gprof['busy_ms']:.1%} of busy), B2's two kernels "
+            f"{gprof['b2_ms']:.4f} ms ({gprof['b2_ms'] / gprof['busy_ms']:.1%}); {card}")
+    else:
+        log("[grad] the profiler recorded no device time")
 
     # 5b. Checks on the gradients.
     ga, gp = convert.grads_to_arrays(g), convert.grads_to_arrays(prev)
@@ -804,9 +905,27 @@ def main() -> int:
         f"{float(en_r.float().mean()):.1f} blocks per tile (max {int(en_r.max())})")
     b3_err = max(b3_err, compare("B3 W9 E1 bounce 2 closest", treelet_hits.hits(*args_b3, False),
                                  treelet_hits.hits_reference(*args_b3, False)))
+    log("[path] live share of lane-visits per round of the instrumented frame (the twin's "
+        "live_tests over its visits x 128 x T), and visits of tiles with no live lane:")
+    frame_st = {}
+    for i, (bounce, rnd) in enumerate(rec["rounds"]):
+        st = {}
+        tb_i, eids_i, _, en_i, o_i, d_i, tmin_i, bt_i, bp_i, anyh = rnd
+        treelet_hits.hits_reference(tb_i, eids_i, en_i, o_i, d_i, tmin_i, bt_i, bp_i, anyh,
+                                    stats=st)
+        for k, n in st.items():
+            frame_st[k] = frame_st.get(k, 0) + n
+        lanes = st["visits"] * 128 * tb_i.T
+        log(f"  round {i} (bounce {bounce + 1}): {st['visits']} visits, live "
+            f"{st['live_tests'] / max(lanes, 1):.2%}, {st['idle_visits']} with no live lane, "
+            f"{rec['b3_ms'][i]:.4f} ms")
+    log(f"  frame: {frame_st['visits']} visits, live "
+        f"{frame_st['live_tests'] / max(frame_st['visits'] * 128 * tb_r.T, 1):.2%}, "
+        f"{frame_st['idle_visits']} with no live lane")
 
     # 6d. The same frame under the profiler.
-    prof = profile_step(lambda: progressive.step(pscene, pcfg, pstate))
+    prof = profile_step(lambda: progressive.step(pscene, pcfg, pstate),
+                        {"b3_ms": "treelet_hits_kernel"})
     if prof:
         log(f"[path] profiled frame: {prof['kernels']} kernels, device busy "
             f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms trace (idle "
@@ -884,24 +1003,30 @@ def main() -> int:
     b2()
     b2_twin()
     b2_lib()
-    b2_ms = cuda_events_ms(b2, 20)
+    b2_ms = cuda_events_ms(b2, 100)
+    b2_device_ms = profiled_device_ms(b2, 100, "chunk_sums_kernel")
     b2_plain_ms = cuda_events_ms(b2_twin, 20)
     b2_lib_ms = cuda_events_ms(b2_lib, 20)
     m_rows = sids_d.shape[0]
     b2_bound_ms, b2_by = bound_ms(m_rows * (4 + 24) + v_d * 24, m_rows * 6)
     log(f"[time] segment_place dragon gradient stream (M={m_rows}, V={v_d}): "
-        f"kernel {b2_ms:.4f} ms, twin {b2_plain_ms:.4f} ms, index_add_ {b2_lib_ms:.4f} ms, "
-        f"bound {b2_bound_ms:.4f} ms ({b2_by}); {card}")
+        f"kernel {b2_ms:.4f} ms per call (CUDA events; device time {b2_device_ms:.4f} ms by "
+        f"the profiler), twin {b2_plain_ms:.4f} ms, index_add_ {b2_lib_ms:.4f} ms, bound "
+        f"{b2_bound_ms:.4f} ms ({b2_by}); {card}")
+    if b2_ms > b2_lib_ms:
+        raise AssertionError("B2 is slower than index_add_")
     treelet_hits.hits(*args_b3, False)
     b3_ms = cuda_events_ms(lambda: treelet_hits.hits(*args_b3, False), 20)
     b3_stats = {}
     treelet_hits.hits_reference(*args_b3, False, stats=b3_stats)
     b3_plain_ms = cuda_events_ms(lambda: treelet_hits.hits_reference(*args_b3, False), 2)
-    b3_bound_ms, b3_by = b3_bound(args_b3, b3_stats["visits"])
+    b3_all_ms, b3_all_by = b3_bound(args_b3, b3_stats["visits"] * 128 * tb_r.T)
+    b3_bound_ms, b3_by = b3_bound(args_b3, b3_stats["live_tests"])
     log(f"[time] treelet_hits W9 E1 bounce 2 round: kernel {b3_ms:.4f} ms, twin "
-        f"{b3_plain_ms:.2f} ms, bound {b3_bound_ms:.4f} ms ({b3_by}; {b3_stats['visits']} "
-        f"tile x block visits, {b3_stats['visits'] * 128 * tb_r.T / (b3_ms * 1e9):.3f} "
-        f"T Moller tests/s); {card}")
+        f"{b3_plain_ms:.2f} ms, bound over live tests {b3_bound_ms:.4f} ms ({b3_by}; "
+        f"{b3_stats['live_tests']} tests, {b3_stats['live_tests'] / (b3_ms * 1e9):.3f} "
+        f"T live Moller tests/s), bound over all lanes {b3_all_ms:.4f} ms ({b3_all_by}; "
+        f"{b3_stats['visits']} tile x block visits x 128 x {tb_r.T}); {card}")
 
     log(json.dumps({"kernels": [{
         "name": "super_hits.hits2",
@@ -923,6 +1048,7 @@ def main() -> int:
         "launches": g_launches["scatter_vn"],
         "max_abs_err": b2_err,
         "ms": b2_ms,
+        "device_ms": b2_device_ms,
         "plain_ms": b2_plain_ms,
         "bound_ms": b2_bound_ms,
         "bound_by": b2_by,
@@ -938,6 +1064,7 @@ def main() -> int:
         "plain_ms": b3_plain_ms,
         "bound_ms": b3_bound_ms,
         "bound_by": b3_by,
+        "bound_all_lanes_ms": b3_all_ms,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

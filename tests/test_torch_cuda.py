@@ -15,8 +15,9 @@ Tolerances:
   rounded operations on both devices, and the integrator divides by Python
   numbers through ``vec.div`` and takes square roots through ``vec.sqrt``,
   so CPU and card round alike.
-* B2: bit for bit against its twin run on a CPU copy (both add each
-  vertex's rows in stream order) and between two launches.
+* B2: bit for bit against its twin run on a CPU copy (both sum in the
+  same fixed order: stream order within each chunk of ``CHUNK_ROWS`` rows,
+  then the chunks' partials in chunk order) and between two launches.
 * B3 and the path-mode frames: bit for bit. B3 shares B1's Möller test
   (``csrc/moller.cuh``); the warps and the environment lookup take their
   transcendentals in float64 and round them (``math/vec.py``), so the card
@@ -36,7 +37,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import scatter_streams, synthetic, synthetic_tiles, with_seeded_env
+from chip_smoke import (lane_tiles, scatter_streams, synthetic, synthetic_tiles,
+                        with_seeded_env)
 from tracer_torch import convert
 from tracer_torch.accel import flat, lbvh, treelet
 from tracer_torch.diff import grad as G
@@ -165,6 +167,48 @@ def test_segment_place_kernel_matches_twin(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 512])
+def test_segment_place_kernel_matches_twin_at_other_chunk_lengths(cuda, rows, monkeypatch):
+    """The wrapper passes ``CHUNK_ROWS`` to the kernel: at 32 and 512 rows
+    the kernel still equals the CPU twin, which reads the same constant."""
+    monkeypatch.setattr(scatter_vn, "CHUNK_ROWS", rows)
+    for _, ids, vals, V in scatter_streams(2, long_rows=5_000):
+        sids, perm = torch.sort(torch.as_tensor(ids, device=cuda), stable=True)
+        svals = torch.as_tensor(vals, device=cuda)[perm].contiguous()
+        got = scatter_vn.segment_place(sids, svals, V)
+        want = scatter_vn.segment_place_reference(sids.cpu(), svals.cpu(), V)
+        assert _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_segment_place_kernel_edge_streams(cuda):
+    """An empty stream gives zeros; rows with ids outside [0, V) add
+    nothing but still count in the chunks (the order is held by numpy:
+    per-chunk ``np.add.at`` of the valid rows, then the partials in chunk
+    order); a stream that leaves long runs of vertices unnamed gets them
+    zeroed."""
+    z = scatter_vn.segment_place(torch.zeros(0, dtype=torch.int32, device=cuda),
+                                 torch.zeros((0, 6), device=cuda), 5000)
+    assert torch.equal(z.cpu(), torch.zeros((5000, 6)))
+    rs = np.random.RandomState(3)
+    ids = np.sort(np.concatenate([rs.randint(-50, 0, 300), rs.randint(0, 40, 700),
+                                  rs.randint(9000, 9100, 600), rs.randint(10_000, 10_100, 300)]))
+    vals = rs.standard_normal((ids.shape[0], 6)).astype(np.float32)
+    V = 10_000
+    got = scatter_vn.segment_place(torch.as_tensor(ids.astype(np.int32), device=cuda),
+                                   torch.as_tensor(vals, device=cuda), V)
+    want = np.zeros((V, 6), np.float32)
+    for a in range(0, ids.shape[0], scatter_vn.CHUNK_ROWS):
+        cid, cval = ids[a:a + scatter_vn.CHUNK_ROWS], vals[a:a + scatter_vn.CHUNK_ROWS]
+        ok = (cid >= 0) & (cid < V)
+        part = np.zeros((V, 6), np.float32)
+        np.add.at(part, cid[ok], cval[ok])
+        touched = np.unique(cid[ok])
+        want[touched] = want[touched] + part[touched]
+    assert got.shape == (V, 6) and _bits_equal(got, torch.as_tensor(want))
+
+
+@pytest.mark.cuda
 def test_segment_place_rejects_what_it_cannot_take(cuda):
     ids = torch.zeros(4, dtype=torch.int32, device=cuda)
     vals = torch.zeros((4, 6), device=cuda)
@@ -215,6 +259,20 @@ def test_treelet_kernel_matches_twin(cuda, any_hit, seed):
     rt, rp = treelet_hits.hits_reference(*args, any_hit, enear=enear)
     assert _bits_equal(kp, rp) and _bits_equal(kt, rt)
     assert int((kp >= 0).sum()) > 150
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "anyhit"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_treelet_kernel_live_lanes_match_twin(cuda, any_hit, seed):
+    """Tiles with 1, 31, 33 and 127 live lanes, a tile with emissions and no
+    live lane, and lanes that die mid-stream (``chip_smoke.lane_tiles``)."""
+    *args, enear = lane_tiles(cuda, any_hit, seed)
+    kt, kp = treelet_hits.hits(*args, any_hit, enear=enear)
+    rt, rp = treelet_hits.hits_reference(*args, any_hit, enear=enear)
+    assert _bits_equal(kp, rp) and _bits_equal(kt, rt)
+    if not any_hit:  # tile 5's axis lanes died on the big triangle at t = tmin = 3
+        assert bool((kt[5, :64] == 3.0).all()) and bool((kp[5, :64] == 0.0).all())
 
 
 @pytest.mark.cuda

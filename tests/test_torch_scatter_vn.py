@@ -4,8 +4,10 @@ hit-attribute fetch against the JAX package.
 Streams come from ``chip_smoke.scatter_streams`` (numpy with a seed; the
 same cases feed the kernel-vs-twin checks on the card): duplicates with
 untouched vertices and V = 1000 (not a multiple of 512), one segment of
-20,000 rows among short ones, and V = 1. The CUDA kernel is held against
-the twin on the card in ``tests/test_torch_cuda.py``.
+20,000 rows among short ones (it spans 78 chunks of ``CHUNK_ROWS`` rows),
+V = 1, M below one chunk, M a multiple of it, and segments that start or
+end exactly on a chunk edge. The CUDA kernel is held against the twin on
+the card in ``tests/test_torch_cuda.py``.
 
 Tolerances:
 * against JAX ``_scatter_add_vn`` in "add" mode and against the
@@ -13,9 +15,10 @@ Tolerances:
   of 1e-6 of each vertex's sum of |x|, because the HIGHEST-precision
   one-hot matmul (and XLA's scatter) sum in another order than the
   sequential twin and sums of mixed signs cancel;
-* the twin against a sequential numpy scatter-add (``np.add.at``) in
-  stream order, and two runs against each other: bitwise. That is the
-  order the CUDA kernel sums in.
+* the twin against a numpy sum in the kernel's fixed order, and two runs
+  against each other: bitwise. The order: ``np.add.at`` of each chunk of
+  ``CHUNK_ROWS`` rows from 0 (stream order within the chunk), then each
+  vertex's chunk partials added in chunk order from 0.
 """
 
 from __future__ import annotations
@@ -43,6 +46,19 @@ IDS = [c[0] for c in CASES]
 
 def _bits(x):
     return np.asarray(x, np.float32).view(np.int32)
+
+
+def _chunk_order_sum(sids, svals, V, rows):
+    """The kernel's order in numpy: per-chunk ``np.add.at`` partials, then
+    each vertex's partials added in chunk order (only the chunks it has
+    rows in)."""
+    want = np.zeros((V, 6), np.float32)
+    for a in range(0, sids.shape[0], rows):
+        part = np.zeros((V, 6), np.float32)
+        np.add.at(part, sids[a:a + rows], svals[a:a + rows])
+        touched = np.unique(sids[a:a + rows])
+        want[touched] = want[touched] + part[touched]
+    return want
 
 
 def _close(got, want, ids, vals, V):
@@ -74,13 +90,13 @@ def test_scatter_add_vn_matches_jax_pallas_interpret(case):
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_segment_place_sums_in_stream_order(case):
-    """The twin on the CPU is the sequential scatter-add of the sorted
-    stream, bit for bit, run after run; untouched vertices are 0."""
+    """The twin on the CPU sums in the kernel's fixed order, bit for bit,
+    run after run: stream order within each chunk of ``CHUNK_ROWS`` rows,
+    then chunk order; untouched vertices are 0."""
     _, ids, vals, V = case
     order = np.argsort(ids, kind="stable")
     sids, svals = ids[order], vals[order]
-    want = np.zeros((V, 6), np.float32)
-    np.add.at(want, sids, svals)
+    want = _chunk_order_sum(sids, svals, V, scatter_vn.CHUNK_ROWS)
     calls, launches = scatter_vn.REFERENCE_CALLS, scatter_vn.KERNEL_LAUNCHES
     runs = [scatter_vn.segment_place(torch.as_tensor(sids), torch.as_tensor(svals), V).numpy()
             for _ in range(2)]
@@ -89,6 +105,27 @@ def test_segment_place_sums_in_stream_order(case):
         assert np.array_equal(_bits(got), _bits(want))
     untouched = np.bincount(ids, minlength=V) == 0
     assert not runs[0][untouched].any()
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_segment_place_order_at_another_chunk_length(case, monkeypatch):
+    """The twin takes ``CHUNK_ROWS`` from the module, as the kernel's
+    wrapper does: at 32 rows every case crosses chunk edges, and the twin
+    still sums in the chunk order above, bit for bit. A segment that lies
+    inside one chunk sums as the plain sequential scatter-add does."""
+    _, ids, vals, V = case
+    order = np.argsort(ids, kind="stable")
+    sids, svals = ids[order], vals[order]
+    monkeypatch.setattr(scatter_vn, "CHUNK_ROWS", 32)
+    got = scatter_vn.segment_place(torch.as_tensor(sids), torch.as_tensor(svals), V).numpy()
+    assert np.array_equal(_bits(got), _bits(_chunk_order_sum(sids, svals, V, 32)))
+    seq = np.zeros((V, 6), np.float32)
+    np.add.at(seq, sids, svals)
+    chunk = np.arange(sids.shape[0]) // 32
+    inside = np.ones(V, bool)  # vertices whose rows all lie in one chunk
+    for j in np.unique(sids):
+        inside[j] = np.unique(chunk[sids == j]).size == 1
+    assert np.array_equal(_bits(got[inside]), _bits(seq[inside]))
 
 
 def test_segment_place_rejects_other_devices():

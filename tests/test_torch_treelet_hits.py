@@ -8,8 +8,11 @@ triangles (the last partly empty), 6 tiles of 128 rays with 8 emission
 slots each: ``en = 0``, ``en < K``, ids out of range, a dead tile (the
 packet engine's padding), a non-zero ``enear`` that stops a tile's stream
 after two blocks, and in any-hit mode pre-occluded lanes and a tile
-occluded from the start. Both sides stream the very same blocks (assembled
-by the port).
+occluded from the start; and ``chip_smoke.lane_tiles`` for the live-lane
+rule: tiles with 1, 31, 33 and 127 live lanes, a tile with emissions and no
+live lane (some of its lanes at +inf), and lanes that die mid-stream in
+both modes. Both sides stream the very same blocks (assembled by the
+port).
 
 Tolerance: ids (the best pid row, or the any-hit flag) must be equal, and
 t is equal bitwise where no triangle was hit. On hit lanes XLA on the CPU
@@ -29,7 +32,7 @@ import torch
 from _share_cores import share_cores
 from test_torch_super_hits import _assert_t_close
 
-from chip_smoke import synthetic_tiles
+from chip_smoke import lane_tiles, synthetic_tiles
 from tracer.kernels import treelet_hits as jax_treelet_hits
 
 from tracer_torch.accel.treelet import NQ, ROWS
@@ -61,6 +64,9 @@ def test_reference_matches_jax_interpret(seed, any_hit):
     # after its first block, tile 5 after two, and in any-hit mode the tile
     # occluded from the start after its first.
     assert stats["visits"] == 8 + 5 + 0 + (1 if any_hit else 8) + 1 + 2
+    if not any_hit:  # every lane of tiles 0, 1, 3 and 5 is live, none of tile 4
+        assert stats["live_tests"] == (8 + 5 + 8 + 2) * 128 * tb.T
+        assert stats["idle_visits"] == 1
     if any_hit:
         assert (pp > 0).sum() > (best_pid.numpy() > 0).sum()  # new occluders
         assert np.array_equal(pt, best_t.numpy().reshape(-1))
@@ -92,3 +98,69 @@ def test_wrapper_takes_the_twin_for_cpu_tensors():
     assert treelet_hits.REFERENCE_CALLS == calls + 1
     t2, p2 = treelet_hits.hits_reference(*args[:-1], True, enear=enear)
     assert torch.equal(t1, t2) and torch.equal(p1, p2)
+
+
+def _match_jax(args, any_hit):
+    tb, eids, en, o, d, tmin, best_t, best_pid, enear = args
+    jtb = SimpleNamespace(T=tb.T, blocks=jnp.asarray(_jax_blocks(tb)))
+    j = lambda x: jnp.asarray(x.numpy())
+    jt, jp = jax_treelet_hits.hits(jtb, j(eids), j(en), j(o), j(d), j(tmin), j(best_t),
+                                   j(best_pid), any_hit, enear=j(enear))
+    stats = {}
+    pt, pp = treelet_hits.hits_reference(tb, eids, en, o, d, tmin, best_t, best_pid,
+                                         any_hit, enear=enear, stats=stats)
+    jt, jp = np.asarray(jt), np.asarray(jp)
+    assert np.array_equal(jp.reshape(-1), pp.numpy().reshape(-1))
+    if any_hit:  # the t row is the input's, passed through
+        assert np.array_equal(jt.view(np.int32), pt.numpy().view(np.int32))
+    else:
+        _assert_t_close(jt.reshape(-1), pt.numpy().reshape(-1), jp.reshape(-1),
+                        tb.qblocks.numpy(), o.numpy().reshape(-1, 3), d.numpy().reshape(-1, 3))
+    return pt, pp, stats
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "anyhit"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_live_lane_tiles_match_jax_interpret(seed, any_hit):
+    """The live-lane cases give the JAX package's result; visits count
+    every tile's slots below ``en``, dead tiles' included (no ``enear``
+    break, as every tile keeps a lane with a positive bound); and the
+    closest-mode live tests
+    are counted by hand: 1, 31, 33 and 127 live lanes for 8, 5, 8 and 3
+    blocks, none in tile 4, and tile 5's 128 lanes for 3 blocks, then 64
+    once its axis lanes have died on the big triangle at t = tmin = 3."""
+    args = lane_tiles("cpu", any_hit, seed)
+    tb, best_t, best_pid = args[0], args[6], args[7]
+    pt, pp, stats = _match_jax(args, any_hit)
+    assert stats["visits"] == 8 + 5 + 8 + 3 + 8 + 8
+    hand = (1 * 8 + 31 * 5 + 33 * 8 + 127 * 3 + 0 + 128 * 3 + 64 * 5) * tb.T
+    if any_hit:
+        assert 0 < stats["live_tests"] < hand  # lanes die at their first hit
+        assert (pp[5, :64] == 1.0).all() and torch.equal(pt, best_t)
+    else:
+        assert stats["live_tests"] == hand and stats["idle_visits"] == 8
+        assert (pt[5, :64] == 3.0).all() and (pp[5, :64] == 0.0).all()
+        # Tile 4 has no live lane: unchanged, but for the +inf bounds that
+        # the block's "no hit" update lowers to 3e38 (pid -1).
+        assert torch.equal(pt[4, 16:], best_t[4, 16:]) and (pt[4, :16] == 3.0e38).all()
+        assert torch.equal(pp[4], best_pid[4])
+        for tile, n_live in enumerate((1, 31, 33, 127)):
+            assert int((pp[tile] >= 0).sum()) <= n_live
+
+
+def test_twin_skips_tiles_with_no_live_lane(monkeypatch):
+    """The twin runs no Möller test for a tile with no live lane (tile 4 of
+    ``lane_tiles``), and a tile's lanes are tested only while one is live."""
+    args = lane_tiles("cpu", False, 0)
+    tested = []
+    moller = treelet_hits.moller_tile
+
+    def spy(blk, rays, upper):
+        tested.append(rays.shape[0])
+        return moller(blk, rays, upper)
+
+    monkeypatch.setattr(treelet_hits, "moller_tile", spy)
+    stats = {}
+    treelet_hits.hits_reference(*args[:-1], False, enear=args[-1], stats=stats)
+    assert stats["idle_visits"] == 8
+    assert sum(tested) == stats["visits"] - 8  # all but tile 4's 8 visits

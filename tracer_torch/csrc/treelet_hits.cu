@@ -11,7 +11,7 @@
 //   * one tile = 128 rays (an 8x16 pixel packet); the tile streams its
 //     emitted treelet blocks k = 0 .. en-1 (ids clipped to [0, NT-1]) while
 //     enear[k] < ub, where ub starts at 3e38 and is the largest best t of
-//     the tile after each block;
+//     the tile's 128 lanes after each block;
 //   * a block is T triangles, kept as its NQ = 4 contiguous quarter blocks
 //     of 16 feature rows x TQ = T/4 triangles (tracer_torch/accel/
 //     treelet.py); inside a block the best hit is the smallest t, ties to
@@ -26,21 +26,39 @@
 // with -fmad=false, so the result equals the twin's op-by-op PyTorch
 // evaluation bit for bit.
 //
-// What bounds it on an H100: operations. Each block visit is 128 x T =
-// 131,072 Moller tests (T = 1024) of 38 FP32 operations, one of them an
-// IEEE division, against 64 KB of triangle data. The bunny stand-in's whole
-// table (118 treelets x 64 KB = 7.7 MB) stays resident in the 50 MB L2, so
-// device memory is not the limit; the dragon's (95 MB) would not be.
-// Design response: one CTA of 128 threads per tile, one ray per thread,
-// the ray kept in registers for the whole stream; each block is staged
-// through shared memory one 16 KB quarter at a time (float4 copies by all
-// threads), and every thread tests its ray against the staged triangles,
-// whose features all threads of a warp read at the same address (a
-// broadcast, no bank conflicts). At 16 KB of shared memory and 128 threads
-// a CTA, many tiles share an SM, so one tile's staging overlaps another's
-// tests without explicit double buffering. Each triangle costs 15 shared
-// loads for one ray's test; several rays per thread, or a triangle-major
-// float4 layout in shared memory, would cut that and is left for later.
+// Lane rule: a lane is live while tmin < bt (bt as held here: -3e38 for an
+// occluded any-hit lane). A lane that is not live can never hit again (a
+// hit needs tmin <= t < bt, and NaN fails both), so it is not tested: it
+// takes the block's "no hit" update (t = 3e38, which only lowers a bt above
+// 3e38 to 3e38). Lanes die mid-stream: any-hit at their first hit, closest
+// when bt reaches tmin. A visit that finds no live lane applies that update
+// and ends the stream without reading the block; later visits could change
+// nothing. ub stays the max over all 128 lanes, so the break is unchanged.
+//
+// What bounds it on an H100: operations. A visit needs (live lanes) x T
+// Moller tests of 38 FP32 operations, one of them an IEEE division, against
+// 64 KB of triangle data; the bunny stand-in's whole table (118 treelets x
+// 64 KB = 7.7 MB) stays resident in the 50 MB L2, so device memory is not
+// the limit. Most lanes that reach B3 in a path frame are dead: finished
+// paths keep an empty window, but the packet walk still emits the blocks
+// around their origins (in a 512x512 W9 E1 frame, chip_smoke.py counts
+// 16.3% of bounce 2's lane-visits live, and under 3% of each later
+// round's). Design:
+//   * one CTA of 128 threads per tile; the rays sit in shared memory and,
+//     before each block, the live lanes are compacted there in lane order
+//     (a ballot per warp); a tile with none stops at once;
+//   * the L live rays are spread over all 128 threads: S = the power of two
+//     >= ceil(L / 4) ray slots of up to 4 rays each (ray slot + i * S), and
+//     128 / S triangle splits (triangle split + j * 128 / S of each
+//     quarter), so each triangle's 15 features are read from shared memory
+//     once for up to 4 rays, lanes of a warp read neighbouring or equal
+//     addresses (no bank conflicts), and a tile with one live lane still
+//     keeps every thread busy on a share of the triangles;
+//   * the splits' per-ray block bests meet in shared memory and are folded
+//     with fold_block_best's (t, pid) minimum, which is order-free, so the
+//     result is the twin's whatever S is;
+//   * the 16 KB quarters are double-buffered with cp.async: quarter q + 1
+//     (or the next block's first) is in flight while quarter q is tested.
 
 #include <cuda_runtime.h>
 
@@ -52,9 +70,94 @@ namespace {
 
 using tracer_torch::kInf;
 
-constexpr int kTile = 128;  // rays per tile (8x16 pixels), one per thread
+constexpr int kTile = 128;  // rays per tile (8x16 pixels) and threads per CTA
+constexpr int kWarps = kTile / 32;
 constexpr int kNq = 4;      // quarter blocks per block
 constexpr int kRows = 16;   // feature rows per block
+constexpr int kRays = 4;    // live rays per thread at most
+constexpr int kRayRows = 7; // o xyz, d xyz, tmin
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// All threads: start copying quarter q of block b into `dst` as one commit
+// group (16-byte copies, neighbouring threads on neighbouring addresses).
+__device__ __forceinline__ void stage_quarter(float* dst, const float* qblocks,
+                                              int b, int q, int tq) {
+  const size_t quarter = static_cast<size_t>(kRows) * tq;
+  const float4* src = reinterpret_cast<const float4*>(
+      qblocks + (static_cast<size_t>(b) * kNq + q) * quarter);
+  float4* d = reinterpret_cast<float4*>(dst);
+  const int n4 = kRows * tq / 4;
+  for (int i = threadIdx.x; i < n4; i += kTile) cp_async16(d + i, src + i);
+  cp_async_commit();
+}
+
+// The block's update of one lane with its block best (tb, pb).
+__device__ __forceinline__ void update_lane(bool any_hit, float tb, float pb,
+                                            float& bt, float& bp) {
+  if (any_hit) {
+    if (tb < kInf) {
+      bp = 1.0f;
+      bt = -kInf;
+    }
+  } else if (tb < bt) {
+    bt = tb;
+    bp = tb < kInf ? pb : -1.0f;
+  }
+}
+
+struct Compaction {
+  int n_live;  // live lanes of the tile (block-uniform)
+  float ub;    // the largest bt of the tile (block-uniform)
+  int idx;     // this lane's place among the live lanes (live lanes only)
+};
+
+// Block-wide: lists the live lanes in lane order in s_lane, publishes each
+// lane's bt in s_up, and returns the count, the tile's max bt and the
+// lane's place.
+__device__ __forceinline__ Compaction compact(bool live, float bt, int* s_lane,
+                                              float* s_up, int* s_wcount,
+                                              float* s_wub) {
+  const int r = threadIdx.x, lane = r & 31, warp = r >> 5;
+  const unsigned mask = __ballot_sync(0xffffffffu, live);
+  float m = bt;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  }
+  if (lane == 0) {
+    s_wcount[warp] = __popc(mask);
+    s_wub[warp] = m;
+  }
+  s_up[r] = bt;
+  __syncthreads();
+  Compaction c;
+  int before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? s_wcount[w] : 0;
+    total += s_wcount[w];
+  }
+  c.n_live = total;
+  c.ub = fmaxf(fmaxf(s_wub[0], s_wub[1]), fmaxf(s_wub[2], s_wub[3]));
+  c.idx = before + __popc(mask & ((1u << lane) - 1u));
+  if (live) s_lane[c.idx] = r;
+  __syncthreads();
+  return c;
+}
 
 __global__ void __launch_bounds__(kTile)
     treelet_hits_kernel(const int* __restrict__ ids, const int* __restrict__ en,
@@ -64,18 +167,22 @@ __global__ void __launch_bounds__(kTile)
                         const float* __restrict__ best,
                         float* __restrict__ out, int k_slots, int nt, int tq,
                         int any_hit) {
-  extern __shared__ __align__(16) float blk[];  // kRows * tq: one quarter
-  __shared__ float warp_ub[kTile / 32];
+  extern __shared__ __align__(16) float s_quarters[];  // 2 x (kRows * tq)
+  __shared__ float s_ray[kRayRows][kTile];
+  __shared__ float s_up[kTile];    // each lane's bt before the block
+  __shared__ int s_lane[kTile];    // live lanes in lane order
+  __shared__ float s_tb[kTile * kRays];  // per (split, live ray) block bests
+  __shared__ float s_pb[kTile * kRays];
+  __shared__ int s_wcount[kWarps];
+  __shared__ float s_wub[kWarps];
 
   const int tile = blockIdx.x;
   const int r = threadIdx.x;
   const float* r8 = rays8 + static_cast<size_t>(tile) * 8 * kTile;
   const float* b2 = best + static_cast<size_t>(tile) * 2 * kTile;
-  const float ox = r8[0 * kTile + r], oy = r8[1 * kTile + r],
-              oz = r8[2 * kTile + r];
-  const float dx = r8[3 * kTile + r], dy = r8[4 * kTile + r],
-              dz = r8[5 * kTile + r];
-  const float tn = r8[6 * kTile + r];
+#pragma unroll
+  for (int j = 0; j < kRayRows; ++j) s_ray[j][r] = r8[j * kTile + r];
+  const float tn = s_ray[6][r];
   float bt = b2[r];
   float bp = b2[kTile + r];
   if (any_hit && bp > 0.0f) bt = -kInf;
@@ -83,44 +190,97 @@ __global__ void __launch_bounds__(kTile)
   const int n = min(en[tile], k_slots);
   const int* ids_s = ids + static_cast<size_t>(tile) * k_slots;
   const float* enear_s = enear + static_cast<size_t>(tile) * k_slots;
-  const int n4 = kRows * tq / 4;
   const size_t quarter = static_cast<size_t>(kRows) * tq;
+  auto block_id = [&](int k) { return min(max(ids_s[k], 0), nt - 1); };
 
+  bool live = tn < bt;
+  Compaction cp = compact(live, bt, s_lane, s_up, s_wcount, s_wub);
   float ub = kInf;  // block-uniform
-  for (int k = 0; k < n && enear_s[k] < ub; ++k) {
-    const int b = min(max(ids_s[k], 0), nt - 1);
-    float tb = kInf, pb = kInf;
-    for (int q = 0; q < kNq; ++q) {
-      const float4* src = reinterpret_cast<const float4*>(
-          qblocks + (static_cast<size_t>(b) * kNq + q) * quarter);
-      float4* dst = reinterpret_cast<float4*>(blk);
-      __syncthreads();  // every thread is done with the previous quarter
-      for (int i = r; i < n4; i += kTile) dst[i] = src[i];
-      __syncthreads();
-      for (int c = 0; c < tq; ++c) {
-        const tracer_torch::Triangle tri = tracer_torch::load_triangle(blk, tq, c);
-        const float tc = tracer_torch::moller_t(tri, ox, oy, oz, dx, dy, dz, tn, bt);
-        tracer_torch::fold_block_best(tc, tri.pid, tb, pb);
-      }
-    }
-    if (any_hit) {
-      if (tb < kInf) {
-        bp = 1.0f;
-        bt = -kInf;
-      }
-    } else if (tb < bt) {
-      bt = tb;
-      bp = tb < kInf ? pb : -1.0f;
-    }
-    float m = bt;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    }
-    if ((r & 31) == 0) warp_ub[r >> 5] = m;
-    __syncthreads();
-    ub = fmaxf(fmaxf(warp_ub[0], warp_ub[1]), fmaxf(warp_ub[2], warp_ub[3]));
+  if (n > 0 && enear_s[0] < ub && cp.n_live > 0) {
+    stage_quarter(s_quarters, qblocks, block_id(0), 0, tq);
   }
+  for (int k = 0; k < n && enear_s[k] < ub; ++k) {
+    if (cp.n_live == 0) {
+      update_lane(any_hit, kInf, kInf, bt, bp);
+      break;
+    }
+    // Ray slots and triangle splits for this block's live lanes.
+    const int want = (cp.n_live + kRays - 1) / kRays;
+    const int lg_s = want <= 1 ? 0 : 32 - __clz(want - 1);
+    const int S = 1 << lg_s;
+    const int W = kTile >> lg_s;
+    const int slot = r & (S - 1);
+    const int split = r >> lg_s;
+    float ro[kRays][kRayRows], up[kRays], tb[kRays], pb[kRays];
+    int nr = 0;
+#pragma unroll
+    for (int i = 0; i < kRays; ++i) {
+      tb[i] = kInf;
+      pb[i] = kInf;
+      const int idx = slot + i * S;
+      if (idx < cp.n_live) {
+        const int l = s_lane[idx];
+#pragma unroll
+        for (int j = 0; j < kRayRows; ++j) ro[i][j] = s_ray[j][l];
+        up[i] = s_up[l];
+        nr = i + 1;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kRayRows; ++j) ro[i][j] = 0.0f;
+        up[i] = -kInf;
+      }
+    }
+
+    const int b = block_id(k);
+    for (int q = 0; q < kNq; ++q) {
+      if (q + 1 < kNq) {
+        stage_quarter(s_quarters + ((q + 1) & 1) * quarter, qblocks, b, q + 1, tq);
+      } else if (k + 1 < n) {
+        stage_quarter(s_quarters, qblocks, block_id(k + 1), 0, tq);
+      } else {
+        cp_async_commit();  // an empty group keeps the wait count uniform
+      }
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* blk = s_quarters + (q & 1) * quarter;
+      for (int c = split; c < tq; c += W) {
+        const tracer_torch::Triangle tri = tracer_torch::load_triangle(blk, tq, c);
+#pragma unroll
+        for (int i = 0; i < kRays; ++i) {
+          if (i < nr) {
+            const float tc = tracer_torch::moller_t(
+                tri, ro[i][0], ro[i][1], ro[i][2], ro[i][3], ro[i][4],
+                ro[i][5], ro[i][6], up[i]);
+            tracer_torch::fold_block_best(tc, tri.pid, tb[i], pb[i]);
+          }
+        }
+      }
+      __syncthreads();  // every thread is done with this buffer
+    }
+
+    // Fold the splits' bests per live ray, then update every lane.
+#pragma unroll
+    for (int i = 0; i < kRays; ++i) {
+      if (i < nr) {
+        s_tb[split * (S * kRays) + slot + i * S] = tb[i];
+        s_pb[split * (S * kRays) + slot + i * S] = pb[i];
+      }
+    }
+    __syncthreads();
+    float t_best = kInf, p_best = kInf;
+    if (live) {
+      for (int s = 0; s < W; ++s) {
+        tracer_torch::fold_block_best(s_tb[s * (S * kRays) + cp.idx],
+                                      s_pb[s * (S * kRays) + cp.idx], t_best,
+                                      p_best);
+      }
+    }
+    update_lane(any_hit, t_best, p_best, bt, bp);
+    live = tn < bt;
+    cp = compact(live, bt, s_lane, s_up, s_wcount, s_wub);
+    ub = cp.ub;
+  }
+  cp_async_wait<0>();  // retire a copy started for a block the break skipped
 
   float* o2 = out + static_cast<size_t>(tile) * 2 * kTile;
   o2[r] = any_hit ? b2[r] : bt;
@@ -143,7 +303,7 @@ extern "C" int treelet_hits_launch(const int* ids, const int* en,
   if (tq <= 0 || tq % 4 != 0 || nt <= 0 || k_slots < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(float) * kRows * static_cast<size_t>(tq);
+  const size_t smem = 2 * sizeof(float) * kRows * static_cast<size_t>(tq);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         treelet_hits_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -19,6 +19,12 @@ flag).
   operation order is the kernel's; so on the card the two agree bit for
   bit.
 
+A lane is live while ``tmin < bt``; one that is not can never hit again.
+The kernel tests only live lanes and ends a tile's stream once none is
+left; the twin skips the Möller test of a tile with no live lane. Both are
+exact. ``hits_reference(stats=...)`` counts the tests the round needs
+(``"live_tests"``) beside the visits.
+
 A block is the treelet table's four contiguous quarter blocks
 (``TreeletBvh.qblocks``), so no second copy of the table is kept.
 ``KERNEL_LAUNCHES`` counts kernel launches and ``REFERENCE_CALLS`` calls of
@@ -127,8 +133,13 @@ def hits_reference(tb, eids, en, o, d, tmin, best_t, best_pid, any_hit: bool,
 
     A loop over emission slots: at slot ``k`` every tile still in its
     stream (``k < en`` and ``enear[k]`` below its bound) tests its rays
-    against block ``eids[:, k]``, then refreshes its bound. ``stats``, when
-    given, receives the number of (tile, block) visits under ``"visits"``.
+    against block ``eids[:, k]``, then refreshes its bound. A tile with no
+    live lane (``tmin < bt`` nowhere, with ``bt`` at -INF for an occluded
+    any-hit lane) takes the block's "no hit" update without the test: no
+    lane of it can hit. ``stats``, when given, receives the number of
+    (tile, block) visits under ``"visits"``, the Möller tests the visits
+    need, live lanes at the start of each visit x T, under ``"live_tests"``,
+    and the visits of tiles with no live lane under ``"idle_visits"``.
     """
     global REFERENCE_CALLS
     REFERENCE_CALLS += 1
@@ -146,14 +157,26 @@ def hits_reference(tb, eids, en, o, d, tmin, best_t, best_pid, any_hit: bool,
     if enear is None:
         enear = torch.zeros((n_tiles, K), dtype=torch.float32, device=dev)
     ub = torch.full((n_tiles,), INF, dtype=torch.float32, device=dev)
+    tn = tmin.to(torch.float32)
     live = torch.ones(n_tiles, dtype=torch.bool, device=dev)
-    visits = 0
+    visits = live_tests = idle_visits = 0
     for k in range(K):
         live = live & (k < en) & (enear[:, k] < ub)
-        tiles = torch.nonzero(live)[:, 0]
-        if tiles.numel() == 0:
+        lanes = (tn < bt).sum(dim=-1)  # live lanes of each tile
+        tiles = torch.nonzero(live & (lanes > 0))[:, 0]
+        idle = torch.nonzero(live & (lanes == 0))[:, 0]
+        if tiles.numel() + idle.numel() == 0:
             break
-        visits += tiles.numel()
+        if stats is not None:
+            visits += tiles.numel() + idle.numel()
+            live_tests += int(lanes[tiles].sum()) * T
+            idle_visits += idle.numel()
+        if idle.numel():
+            if not any_hit:  # the no-hit update: t = INF only lowers a bound above INF
+                upper = bt[idle]
+                bp[idle] = torch.where(INF < upper, -1.0, bp[idle])
+                bt[idle] = torch.clamp_max(upper, INF)
+            ub[idle] = bt[idle].amax(dim=-1)
         for a in range(0, tiles.numel(), CHUNK):
             ti = tiles[a:a + CHUNK]
             blk = blocks4[ids[ti, k]].permute(0, 2, 1, 3).reshape(-1, ROWS, T)
@@ -170,5 +193,7 @@ def hits_reference(tb, eids, en, o, d, tmin, best_t, best_pid, any_hit: bool,
             ub[ti] = bt[ti].amax(dim=-1)
     if stats is not None:
         stats["visits"] = stats.get("visits", 0) + visits
+        stats["live_tests"] = stats.get("live_tests", 0) + live_tests
+        stats["idle_visits"] = stats.get("idle_visits", 0) + idle_visits
     out_t = best_t if any_hit else bt
     return out_t, bp
