@@ -70,7 +70,24 @@ Phases (each raises on failure, so the script exits non-zero):
               super-tile; for B3 two bounds:
               over the live lanes' tests, and over all 128 lanes of every
               visit); B2 also by the profiler's device time, and it must not
-              be slower than ``index_add_``.
+              be slower than ``index_add_``;
+8. cornell  — ``W8 E3 Absorption`` at 512x512 (path mode, depth 10, the
+              12-triangle Cornell box of ``with_fixture_model``, two
+              spheres, next-event estimation over the light quad, the
+              dielectric with absorption), which takes the brute-force
+              engine (plain PyTorch by design: no hand kernel), through 1
+              warm-up and 10 timed ``progressive.step`` frames: ms/frame by
+              CUDA events and by the host clock and primary Mpath/s; one
+              frame with spies (bounces, ray segments and shadow rays) and
+              one under ``torch.profiler`` (kernels, device busy time, idle
+              share); the brute-force engine's closest-hit and any-hit
+              queries of bounce 2 alone, by CUDA events and the profiler,
+              beside their bound. Checks: no lane was truncated, the accumulator is
+              finite and non-negative, no hand kernel and no twin ran, and a
+              32x32 frame agrees with the JAX package's numbers
+              (``CORNELL_REF``). Then ``W8 E1`` and ``W8 E2 Cornell Box
+              Balls`` at 512x512 and ``W7 E3 Cornell Box`` at 128x128, 1
+              warm-up and 3 frames each (ms/frame), with the same checks.
 
 Prints one JSON object of per-kernel results on the line before the last,
 and ``{"ok": true, "device": {...}}`` as the last line. Imports nothing of
@@ -81,10 +98,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -132,6 +151,17 @@ BUNNY_GRAD_RTOL = 1e-4
 PATH_REF = dict(sum=96.71946799755096, sumsq=56.272532453645084, max=0.9304773807525635)
 PATH_RTOL = 1e-4
 
+# The same numbers for W8 E3 Absorption at 32x32 (registry depth 10, the
+# Cornell box of ``with_fixture_model``) after two progressive steps.
+# ``tests/test_torch_cornell.py`` recomputes them from JAX. The port's CPU
+# render meets them at 2.3e-5 relative at worst (the sum: the per-pair
+# Möller test and float64 transcendentals send a few lanes down another
+# path than the JAX package's matrix-form test and float32 ones), inside
+# CORNELL_RTOL with a margin of 4x; the card's render equals the CPU's bit
+# for bit.
+CORNELL_REF = dict(sum=690.4276269679613, sumsq=6906.90693658513, max=39.46552276611328)
+CORNELL_RTOL = 1e-4
+
 
 def seeded_env(rgbe: bool, seed: int = 0, shape=(32, 64)) -> np.ndarray:
     """An (H, W, 4) float32 environment map of random 8-bit texels from
@@ -149,10 +179,10 @@ def path_stats(accum) -> dict:
     return dict(sum=float(a.sum()), sumsq=float((a * a).sum()), max=float(a.max()))
 
 
-def path_errors(stats: dict, rtol: float = PATH_RTOL) -> list:
-    """The statistics of ``stats`` that miss ``PATH_REF`` by more than
-    ``rtol`` relative."""
-    return [f"{k}: {stats[k]!r} vs {v!r}" for k, v in PATH_REF.items()
+def path_errors(stats: dict, rtol: float = PATH_RTOL, ref: dict = PATH_REF) -> list:
+    """The statistics of ``stats`` that miss ``ref`` by more than ``rtol``
+    relative."""
+    return [f"{k}: {stats[k]!r} vs {v!r}" for k, v in ref.items()
             if abs(stats[k] - v) > rtol * abs(v)]
 
 
@@ -439,6 +469,53 @@ def lane_tiles(device, any_hit: bool, seed: int):
     return (tb, t(eids), t(en), sh(o), sh(d), sh(tmin), sh(best_t), sh(best_pid), t(enear))
 
 
+def brute_case(kind: str, seed: int, n: int = 4096):
+    """Inputs of the brute-force engine from numpy with a seed: (vertices,
+    indices, o, d, tmin, tmax, edge). ``kind`` "cornell": the Cornell box fixture,
+    with rays from the camera's eye into the box and from points inside it
+    in all directions; "seeded64": 64 random triangles about the origin,
+    with rays from a sphere of radius 4 toward them. Either way a tenth of
+    the rays aim at a point on a triangle's edge (shared edges and quad
+    diagonals, where two triangles tie; ``edge`` marks them), a fifth have
+    a finite tmax (shadow rays), and a twentieth an empty window (tmin ==
+    tmax, as the path loop gives done lanes)."""
+    from tracer_torch.geometry.obj import load_obj
+
+    rs = np.random.RandomState(seed)
+    if kind == "cornell":
+        mesh = load_obj(str(FIXTURES / "CornellBox.obj"))
+        verts, idx = mesh.vertices, mesh.indices.astype(np.int32)
+        lo, hi = np.float32([0, 0, 0]), np.float32([556, 548.8, 559.2])
+        o = np.where(rs.rand(n, 1) < 0.5, np.float32([277, 275, -570]),
+                     lo + rs.uniform(0.05, 0.95, (n, 3)) * (hi - lo))
+        tgt = lo + rs.uniform(0.0, 1.0, (n, 3)) * (hi - lo)
+        tmin0 = 1e-2
+    elif kind == "seeded64":
+        c = rs.uniform(-1.0, 1.0, (64, 1, 3))
+        verts = (c + rs.normal(0.0, 0.3, (64, 3, 3))).reshape(-1, 3)
+        idx = np.arange(192, dtype=np.int32).reshape(64, 3)
+        o = rs.normal(0.0, 1.0, (n, 3))
+        o *= 4.0 / np.linalg.norm(o, axis=1, keepdims=True)
+        tgt = rs.uniform(-1.0, 1.0, (n, 3))
+        tmin0 = 1e-5
+    else:
+        raise ValueError(kind)
+    verts = np.asarray(verts, np.float32)
+    edge = rs.rand(n) < 0.1
+    tri = idx[rs.randint(0, idx.shape[0], n)]
+    k = rs.randint(0, 3, n)
+    a, b = verts[tri[np.arange(n), k]], verts[tri[np.arange(n), (k + 1) % 3]]
+    tgt = np.where(edge[:, None], a + rs.rand(n, 1) * (b - a), tgt)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.full(n, tmin0)
+    tmax = np.where(rs.rand(n) < 0.2, rs.uniform(0.0, 1.2, n) * np.linalg.norm(tgt - o, axis=1),
+                    5000.0)
+    tmax = np.where(rs.rand(n) < 0.05, tmin, tmax)
+    f32 = lambda x: np.ascontiguousarray(x, np.float32)
+    return verts, idx, f32(o), f32(d), f32(tmin), f32(tmax), edge
+
+
 def frame_args(em, tb):
     return (tb, em.ids, em.enear, em.en, em.gm, em.o, em.d, em.tmin, em.bt0, em.bp0)
 
@@ -552,6 +629,23 @@ def b3_bound(args, tests: int) -> tuple[float, str]:
     return bound_ms(n_bytes, tests * OPS_PER_TEST)
 
 
+# Hand-written Cornell boxes (tests/fixtures) that stand in for the reference's
+# models of the same names, which the registry rows name under its asset root.
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+FIXTURE_MODELS = ("CornellBox.obj", "CornellBoxWithBlocks.obj")
+
+
+def with_fixture_model(desc):
+    """``desc`` with its model read from the repository's fixtures, for the
+    two Cornell boxes; raises for any other model that is missing."""
+    name = os.path.basename(desc.model or "")
+    if name in FIXTURE_MODELS:
+        return dataclasses.replace(desc, model=str(FIXTURES / name))
+    if desc.model is not None and not os.path.exists(desc.model):
+        raise FileNotFoundError(f"{desc.name}: model {desc.model} is missing and has no fixture")
+    return desc
+
+
 def with_seeded_env(scene, desc, device):
     from tracer_torch.render import texture
 
@@ -624,6 +718,165 @@ def instrumented_step(scene, cfg, state) -> dict:
     rec["phase_a_ms"] = sum(s.elapsed_time(e) for s, e in ev_a)
     rec["b3_ms"] = [s.elapsed_time(e) for s, e in ev_b]
     return rec
+
+
+def cornell_instrumented(scene, cfg, state) -> dict:
+    """One progressive step with spies on the brute-force path's layers:
+    bounces, ray segments (lanes with a non-empty window at each bounce's
+    trace), shadow rays with a non-empty window, truncated lanes, and the
+    brute-force engine's calls, with the arguments of the closest-hit and
+    the any-hit call of bounce 2. The spies read the device, so this frame
+    is not a timed one."""
+    from tracer_torch.kernels import intersect
+    from tracer_torch.render import integrator, progressive
+
+    rec = dict(bounces=0, segments=0, shadow=0, bad=0, brute_calls=0, brute_args={})
+    orig = (integrator.trace_closest, integrator.trace_occluded, integrator._paint_bad,
+            intersect.mesh_brute_force, intersect.mesh_brute_force_anyhit)
+
+    def trace(sc, c, rays, *args, **kw):
+        rec["bounces"] += 1
+        rec["segments"] += int((rays.tmax > rays.tmin).sum())
+        return orig[0](sc, c, rays, *args, **kw)
+
+    def occluded(sc, c, rays):
+        rec["shadow"] += int((rays.tmax > rays.tmin).sum())
+        return orig[1](sc, c, rays)
+
+    def paint(result, bad):
+        rec["bad"] += int(bad.sum())
+        return orig[2](result, bad)
+
+    def spy(fn, key):
+        def run(*args):
+            rec["brute_calls"] += 1
+            if rec["bounces"] == 2:
+                rec["brute_args"][key] = args
+            return fn(*args)
+        return run
+
+    (integrator.trace_closest, integrator.trace_occluded, integrator._paint_bad,
+     intersect.mesh_brute_force, intersect.mesh_brute_force_anyhit) = (
+        trace, occluded, paint, spy(orig[3], "closest"), spy(orig[4], "any-hit"))
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        progressive.step(scene, cfg, state)
+        torch.cuda.synchronize()
+        rec["frame_host_ms"] = (time.perf_counter() - t) * 1e3
+    finally:
+        (integrator.trace_closest, integrator.trace_occluded, integrator._paint_bad,
+         intersect.mesh_brute_force, intersect.mesh_brute_force_anyhit) = orig
+    return rec
+
+
+def brute_times(rec, card: str) -> None:
+    """The brute-force engine alone on bounce 2's closest-hit and any-hit
+    queries of ``rec``: ms per call by CUDA events over back-to-back calls
+    and device ms by the profiler, beside the bound (every input read once,
+    the output written once, ``OPS_PER_TEST`` per (ray, triangle) pair;
+    the engine tests every lane, live or not)."""
+    from tracer_torch.kernels import intersect
+
+    for key, fn in (("closest", intersect.mesh_brute_force),
+                    ("any-hit", intersect.mesh_brute_force_anyhit)):
+        rays, verts, idx = rec["brute_args"][key]
+        call = lambda: fn(rays, verts, idx)
+        out = call()
+        ms = cuda_events_ms(call, 20)
+        dev_ms = profiled_device_ms(call, 20, "elementwise")
+        n, T = rays.o.shape[0], idx.shape[0]
+        outs = out if isinstance(out, tuple) else (out,)
+        b_ms, b_by = bound_ms(nbytes(rays.o, rays.d, rays.tmin, rays.tmax, verts, idx, *outs),
+                              n * T * OPS_PER_TEST)
+        live = float((rays.tmax > rays.tmin).float().mean())
+        log(f"[cornell] brute-force {key} at bounce 2 ({n} lanes, {live:.1%} with a non-empty "
+            f"window; {T} triangles): {ms:.4f} ms per call (CUDA events), {dev_ms:.4f} ms "
+            f"device (profiler), bound {b_ms:.4f} ms ({b_by}); {rec['brute_calls']} brute-force "
+            f"calls in the frame; {card}")
+
+
+def cornell_phase(dev, card: str, kernels) -> None:
+    """Phase 8: path mode in the Cornell box on the brute-force engine (see
+    the module docstring). Raises on any failed check."""
+    from tracer_torch.render import progressive
+    from tracer_torch.scenes.build import build_scene
+    from tracer_torch.scenes.registry import get_scene
+
+    counts = [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in kernels]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def sized(name, size):
+        desc = with_fixture_model(get_scene(name))
+        return dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=size,
+                                                                 height=size))
+
+    def run(name, size, frames):
+        t0 = time.perf_counter()
+        scene, cfg = build_scene(sized(name, size), dev)
+        built = time.perf_counter() - t0
+        if cfg.traversal != "brute" or scene.tb is not None or cfg.mode != "path":
+            raise AssertionError(f"{name} is not on the brute-force path")
+        state = progressive.init_state(cfg, dev)
+        progressive.step(scene, cfg, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(frames):
+            progressive.step(scene, cfg, state)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / frames * 1e3
+        ms = start.elapsed_time(end) / frames
+        rec = cornell_instrumented(scene, cfg, state)
+        acc = state.accum
+        log(f"[cornell] {name} {cfg.width}x{cfg.height}, max_depth {cfg.max_depth}, "
+            f"{scene.geom.indices.shape[0]} triangles, "
+            f"{0 if scene.spheres is None else scene.spheres.radius.shape[0]} spheres, built in "
+            f"{built:.2f} s; {frames} frames: {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} "
+            f"ms/frame (host clock), primary {cfg.width * cfg.height / (ms * 1e3):.3f} Mpath/s; "
+            f"instrumented frame ({rec['frame_host_ms']:.3f} ms, host clock): {rec['bounces']} "
+            f"bounces, {rec['segments']} ray segments ({rec['segments'] / (ms * 1e3):.3f} M "
+            f"segments/s at the timed ms/frame), {rec['shadow']} shadow rays, truncated lanes "
+            f"{rec['bad']}; {card}")
+        if rec["bad"]:
+            raise AssertionError(f"{name}: {rec['bad']} lanes were truncated")
+        if acc.shape != (cfg.width * cfg.height, 3) or not bool(torch.isfinite(acc).all()) \
+                or not bool((acc >= 0).all()) or not float(acc.max()) > 0:
+            raise AssertionError(f"{name}: the accumulator is not finite, non-negative and nonzero")
+        if state.iteration != frames + 2:
+            raise AssertionError(f"{name}: iteration {state.iteration} after {frames + 2} steps")
+        if [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in kernels] != counts:
+            raise AssertionError(f"{name} ran a hand kernel or a twin")
+        return scene, cfg, state, rec
+
+    # 8a. The main path: W8 E3 at full registry size.
+    scene, cfg, state, rec = run("W8 E3 Absorption", 512, 10)
+    if (cfg.width, cfg.height, cfg.max_depth) != (512, 512, 10) \
+            or scene.geom.indices.shape[0] != 12 or scene.spheres.radius.shape[0] != 2:
+        raise AssertionError("the W8 E3 frame is not at full size")
+    prof = profile_step(lambda: progressive.step(scene, cfg, state), {})
+    if prof:
+        log(f"[cornell] profiled W8 E3 frame: {prof['kernels']} kernels, device busy "
+            f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms trace (idle "
+            f"{prof['idle']:.1%}); {card}")
+    else:
+        log("[cornell] the profiler recorded no device time")
+    brute_times(rec, card)
+
+    # 8b. A 32x32 frame against the JAX package's numbers.
+    sscene, scfg = build_scene(sized("W8 E3 Absorption", 32), dev)
+    stats = path_stats(progressive.render_progressive(sscene, scfg, 2).accum.cpu().numpy())
+    log(f"[cornell 32x32] {stats} (JAX: {CORNELL_REF})")
+    bad = path_errors(stats, CORNELL_RTOL, CORNELL_REF)
+    if bad:
+        raise AssertionError("the 32x32 W8 E3 frame disagrees with the JAX package: "
+                             + "; ".join(bad))
+
+    # 8c. The other Cornell rows of the slice.
+    for name, size in (("W8 E1 Cornell Box Balls", 512), ("W8 E2 Cornell Box Balls", 512),
+                       ("W7 E3 Cornell Box", 128)):
+        run(name, size, 3)
 
 
 def profile_step(step, keys: dict) -> dict:
@@ -1149,6 +1402,9 @@ def main() -> int:
         f"{b3_stats['live_tests']} tests, {b3_stats['live_tests'] / (b3_ms * 1e9):.3f} "
         f"T live Moller tests/s), bound over all lanes {b3_all_ms:.4f} ms ({b3_all_by}; "
         f"{b3_stats['visits']} tile x block visits x 128 x {tb_r.T}); {card}")
+
+    # 8. Path mode in the Cornell box (the brute-force engine; no hand kernel).
+    cornell_phase(dev, card, kernels)
 
     log(json.dumps({"kernels": [{
         "name": "super_hits.hits2",

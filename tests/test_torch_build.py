@@ -178,8 +178,8 @@ def test_registry_matches_jax():
     assert registry.REF_RES == jax_registry.REF_RES
 
 
-@pytest.mark.parametrize("name", ["W1 E6", "W8 E3 Absorption",
-                                  "W6 E1 Dragon", "W5 E3 Teapot"])
+@pytest.mark.parametrize("name", ["W1 E6", "W6 E2 Cornell Box",
+                                  "W6 E1 Dragon", "W5 E3 Teapot", "W9 E3 Teapot"])
 def test_build_scene_rejects_rows_outside_slice(name):
     with pytest.raises(NotImplementedError, match="outside the ported slice"):
         build_scene(registry.get_scene(name), "cpu")

@@ -3,7 +3,8 @@
 ``scene_from_arrays`` reads any object with the attribute names of the JAX
 package's ``Scene`` whose leaves are NumPy arrays (for example
 ``jax.tree.map(np.asarray, scene)``) and returns the port's ``Scene`` on
-``device``, analytic planes and environment map included, so both
+``device``, analytic spheres and planes and the environment map included
+(and no treelet BVH for a mesh on the brute-force engine), so both
 implementations can be run on the very same buffers.
 ``grads_to_arrays`` reads a scene gradient of either package the same way,
 so the two can be compared leaf by leaf. Both only read attributes and
@@ -19,7 +20,7 @@ from tracer_torch.accel.treelet import TreeletBvh
 from tracer_torch.diff.grad import FLOAT_LEAVES, leaf
 from tracer_torch.geometry.device import GeometryBuffers, MaterialTable, Planes
 from tracer_torch.render.camera import Camera
-from tracer_torch.render.scene import Scene, Uniforms
+from tracer_torch.render.scene import Scene, Spheres, Uniforms
 from tracer_torch.render.texture import TextureBuf
 
 
@@ -55,14 +56,20 @@ def grads_to_arrays(g) -> dict:
 
 
 def scene_from_arrays(obj, device) -> Scene:
-    for kind, rows in (("spheres", obj.spheres.radius), ("triangles", obj.tris.shader)):
-        if np.asarray(rows).shape[0]:
-            raise NotImplementedError(f"analytic {kind} are not ported")
-    if obj.geom is None or obj.tb is None:
-        raise NotImplementedError("only mesh scenes on the treelet engine are ported")
-    cam, uni, g, m, p = obj.camera, obj.uniforms, obj.geom, obj.materials, obj.planes
+    if np.asarray(obj.tris.shader).shape[0]:
+        raise NotImplementedError("analytic triangles are not ported")
+    if obj.geom is None:
+        raise NotImplementedError("only mesh scenes are ported")
+    cam, uni, g, m, p, sp = (obj.camera, obj.uniforms, obj.geom, obj.materials, obj.planes,
+                             obj.spheres)
     i32 = torch.int32
-    planes = None
+    spheres = planes = None
+    if np.asarray(sp.radius).shape[0]:
+        spheres = Spheres(
+            center=_t(sp.center, device), radius=_t(sp.radius, device),
+            shader=_t(sp.shader, device, i32), base_color=_t(sp.base_color, device),
+            ior=_t(sp.ior, device), extinction=_t(sp.extinction, device),
+        )
     if np.asarray(p.normal).shape[0]:
         planes = Planes(
             position=_t(p.position, device), normal=_t(p.normal, device),
@@ -96,7 +103,8 @@ def scene_from_arrays(obj, device) -> Scene:
             shininess=_t(m.shininess, device), ior=_t(m.ior, device),
         ),
         light_indices=_t(obj.light_indices, device, i32),
-        tb=treelet_from_arrays(obj.tb, device),
+        tb=None if obj.tb is None else treelet_from_arrays(obj.tb, device),
         planes=planes,
         env=env,
+        spheres=spheres,
     )

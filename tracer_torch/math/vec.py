@@ -74,6 +74,10 @@ def exp2(x):
     return _via_f64(torch.exp2, x)
 
 
+def exp(x):
+    return _via_f64(torch.exp, x)
+
+
 def length(a, keepdims: bool = False):
     return sqrt(dot(a, a, keepdims=keepdims))
 

@@ -1,20 +1,25 @@
 """Wavefront integrator (port of ``tracer.render.integrator``): the
-direct-mode mesh slice and path mode on a mesh with analytic planes.
+direct-mode mesh slice and path mode on a mesh with analytic spheres and
+planes.
 
 The whole W*H pixel wavefront advances together.
 
 * Direct mode: closest hit against the triangle mesh through the flat
-  treelet engine, the Lambertian shade under the ``directional_n`` light
-  with the ``plain_scaled`` ambient term (project.wgsl), and the background
-  colour on misses. Scenes whose shaders cannot spawn a continuation ray
-  take exactly one bounce (``_single_bounce``).
-* Path mode (``W9 E1``/``W9 E2``): per-pixel random jitter and streams
-  (``math.rng``), a multi-bounce ``while`` loop that stops when every lane
-  is done, analytic planes, the mesh through the packet engine, the
-  environment map (or the background colour) on misses, the path-traced
-  Lambertian without lights (emission gating and Russian roulette with
-  cosine-hemisphere continuation), and the holdout shader, whose ambient
-  occlusion probe is a mesh any-hit query.
+  treelet engine (or the brute-force engine for meshes of 64 triangles or
+  fewer), the Lambertian shade under the ``directional_n`` light with the
+  ``plain_scaled`` ambient term (project.wgsl), and the background colour
+  on misses. Scenes whose shaders cannot spawn a continuation ray take
+  exactly one bounce (``_single_bounce``).
+* Path mode (``W7 E3``, ``W8 E1``-``E3``, ``W9 E1``/``E2``): per-pixel
+  random jitter and streams (``math.rng``), a multi-bounce ``while`` loop
+  that stops when every lane is done, analytic spheres and planes, the mesh
+  through the packet engine or the brute-force engine, the environment map
+  (or the background colour) on misses, and four shaders: the path-traced
+  Lambertian (one-sample next-event estimation over the emissive triangles
+  with a shadow ray, emission gating, and Russian roulette with
+  cosine-hemisphere continuation), the mirror, the stochastic Fresnel
+  dielectric with optional Beer-Lambert absorption, and the holdout, whose
+  ambient-occlusion probe is a mesh any-hit query.
 
 The path is differentiable as in the JAX package: the traversal runs on
 detached inputs under ``no_grad`` and returns integer ids, and every hit
@@ -24,7 +29,10 @@ normals (through ``fetch_tri_rows``) and the materials. The material fetch
 is a one-hot product, whose backward is a product (deterministic on the
 card) where a gather's would be a scatter. TF32 is off
 (``tracer_torch/__init__.py``), so that float32 product is an exact
-selection on every device. Path-mode gradients are not ported.
+selection on every device. Where the JAX package fetches rows by a one-hot
+product only to avoid a TPU gather and no gradient of this port flows
+through them (the small-mesh triangle rows, the light table), a gather
+fetches the same rows. Path-mode gradients are not ported.
 """
 
 from __future__ import annotations
@@ -117,13 +125,23 @@ def _material_rows(mats, mat):
     return oh @ pack
 
 
+def _effective_traversal(scene: Scene, cfg: SceneConfig) -> str:
+    """Execution engine for the mesh. BSP-configured scenes run the treelet
+    engines (``cfg.bsp_execution == "fast"``): a closest-hit or any-hit
+    query does not depend on the traversal."""
+    if cfg.traversal == "bsp" and cfg.bsp_execution == "fast" and scene.tb is not None:
+        return "bvh"
+    return cfg.traversal
+
+
 def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
                   seed_t=None) -> Hit:
-    """Closest hit over the analytic planes and the triangle mesh, as the
-    reference's sequential tmax-shrinking fold (``w8e3.wgsl:290-311``). The
-    mesh goes through the flat engine in direct mode and through the packet
-    engine in path mode (incoherent bounces defeat the flat engine's
-    frustums).
+    """Closest hit over the analytic spheres and planes and the triangle
+    mesh, as the reference's sequential tmax-shrinking fold
+    (``w8e3.wgsl:290-311``). The mesh goes through the brute-force engine
+    (``traversal == "brute"``), else through the flat engine in direct mode
+    and through the packet engine in path mode (incoherent bounces defeat
+    the flat engine's frustums).
 
     ``seed_t``: optional per-ray temporal upper-bound hint for the flat
     engine; exact whatever its quality (see
@@ -151,6 +169,28 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         converged=torch.ones(n, dtype=torch.bool, device=dev),
     )
 
+    spheres = scene.spheres
+    for i in range(0 if spheres is None else spheres.radius.shape[0]):
+        c = spheres.center[i]
+        t, ok = intersect.sphere_t(Rays(rays.o, rays.d, rays.tmin, best.t), c,
+                                   spheres.radius[i])
+        pos = rays.o + t[:, None] * rays.d
+        shader = _resolve_shader(int(spheres.shader[i]), scene.uniforms)
+        best = _update(
+            best, ok,
+            valid=torch.ones(n, dtype=torch.bool, device=dev),
+            t=t,
+            position=pos,
+            normal=vec.normalize(pos - c, eps=1e-24),
+            shader=torch.full((n,), shader, dtype=torch.int32, device=dev),
+            albedo=spheres.base_color[i].expand(n, 3),
+            emission=z3,
+            ior=spheres.ior[i].expand(n),
+            extinction=spheres.extinction[i].expand(n, 3),
+            is_mesh=torch.zeros(n, dtype=torch.bool, device=dev),
+            textured=torch.zeros(n, dtype=torch.bool, device=dev),
+        )
+
     planes = scene.planes
     for i in range(0 if planes is None else planes.normal.shape[0]):
         p0 = planes.position[i]
@@ -175,12 +215,19 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         )
 
     geom = scene.geom
+    trav = _effective_traversal(scene, cfg)
     # The traversal carries no gradient: its inputs are detached and it
     # returns integer ids (the accel buffers hold no grads either).
     with torch.no_grad():
         sub = Rays(rays.o.detach(), rays.d.detach(), rays.tmin.detach(),
                    best.t.detach())
-        if cfg.mode == "direct":
+        if trav == "brute":
+            # Engines without caps always converge.
+            _, tri = intersect.mesh_brute_force(sub, geom.vertices, geom.indices)
+            conv = torch.ones(n, dtype=torch.bool, device=dev)
+        elif trav != "bvh":
+            raise NotImplementedError(f"traversal {trav!r} is not ported")
+        elif cfg.mode == "direct":
             _, tri, conv = flat.closest_hit(
                 sub, scene.tb, frame=(cfg.width, cfg.height), with_conv=True,
                 seed_t=None if seed_t is None else seed_t.detach(),
@@ -239,13 +286,39 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
 
 def _mesh_only_anyhit(scene: Scene, cfg: SceneConfig, rays: Rays):
     """Trimesh-only occlusion, ``intersect_trimesh_immediate_return`` as the
-    holdout shader uses it (``w9e2.wgsl:514-538``), through the packet
-    engine (path mode). Returns (blocked, converged)."""
+    holdout shader uses it (``w9e2.wgsl:514-538``): the brute-force engine's
+    any-hit (which always converges), or the flat engine's in direct mode
+    and the packet engine's in path mode. Returns (blocked, converged)."""
+    trav = _effective_traversal(scene, cfg)
     with torch.no_grad():
         srays = Rays(rays.o.detach(), rays.d.detach(), rays.tmin.detach(),
                      rays.tmax.detach())
-        return packet.any_hit(srays, scene.tb, frame=(cfg.width, cfg.height),
-                              with_conv=True)
+        if trav == "brute":
+            blocked = intersect.mesh_brute_force_anyhit(
+                srays, scene.geom.vertices, scene.geom.indices)
+            return blocked, torch.ones_like(blocked)
+        if trav != "bvh":
+            raise NotImplementedError(f"traversal {trav!r} is not ported")
+        mod = flat if cfg.mode == "direct" else packet
+        return mod.any_hit(srays, scene.tb, frame=(cfg.width, cfg.height),
+                           with_conv=True)
+
+
+def trace_occluded(scene: Scene, cfg: SceneConfig, rays: Rays):
+    """Occlusion over the whole scene (shadow rays): the analytic spheres and
+    planes, then the mesh's any-hit query. The reference's shadow test
+    reuses the closest-hit ``intersect_scene`` (``w8e3.wgsl:469-471``) and
+    reads only whether it hit. Returns (blocked, converged)."""
+    blocked = torch.zeros(rays.o.shape[0], dtype=torch.bool, device=rays.o.device)
+    spheres, planes = scene.spheres, scene.planes
+    for i in range(0 if spheres is None else spheres.radius.shape[0]):
+        _, ok = intersect.sphere_t(rays, spheres.center[i], spheres.radius[i])
+        blocked = blocked | ok
+    for i in range(0 if planes is None else planes.normal.shape[0]):
+        _, ok = intersect.plane_t(rays, planes.position[i], planes.normal[i])
+        blocked = blocked | ok
+    b, conv = _mesh_only_anyhit(scene, cfg, rays)
+    return blocked | b, conv
 
 
 def _sample_directional(cfg: SceneConfig, n: int, device):
@@ -258,6 +331,46 @@ def _sample_directional(cfg: SceneConfig, n: int, device):
         d.expand(n, 3),
         torch.ones(n, dtype=torch.float32, device=device),
     )
+
+
+def _area_light_attrs(scene: Scene, light_slot):
+    """(v0, v1, v2, Le, area, normal) of light triangle ``light_slot`` (an
+    index into ``scene.light_indices``), one row per lane. The JAX package
+    selects the rows by a one-hot product over the (L, 12) light table for
+    its backward; no gradient flows here, and a gather fetches the same
+    rows."""
+    tri_all = scene.light_indices.long()
+    idx_all = scene.geom.indices[tri_all].long()
+    verts = scene.geom.vertices
+    slot = light_slot.long()
+    v0 = verts[idx_all[:, 0]][slot]
+    v1 = verts[idx_all[:, 1]][slot]
+    v2 = verts[idx_all[:, 2]][slot]
+    l_e = scene.materials.emission[scene.geom.mat_ids[tri_all].long()][slot]
+    cr = vec.cross(v0 - v1, v0 - v2)
+    area = 0.5 * vec.sqrt(vec.dot(cr, cr))
+    nrm = vec.normalize(cr, eps=1e-24)
+    return v0, v1, v2, l_e, area, nrm
+
+
+def _sample_area_light_mc(scene: Scene, pos, light_slot, state):
+    """``sample_area_light`` with the sqrt barycentric warp
+    (``w9e2.wgsl:406-433``): two draws, then a point on the light triangle.
+    Returns (l_i, w_i, dist, state')."""
+    v0, v1, v2, l_e, area, nrm = _area_light_attrs(scene, light_slot)
+    psi1_raw, state = rng.rnd(state)
+    psi2, state = rng.rnd(state)
+    psi1 = vec.sqrt(psi1_raw)
+    alpha = 1.0 - psi1
+    beta = (1.0 - psi2) * psi1
+    gamma = psi2 * psi1
+    p = v0 * alpha[..., None] + v1 * beta[..., None] + v2 * gamma[..., None]
+    d = p - pos
+    dist = vec.sqrt(vec.dot(d, d))
+    w_i = vec.normalize(d, eps=1e-24)
+    cos_l = torch.clamp_min(vec.dot(-w_i, nrm), 0.0)
+    l_i = l_e * (area * cos_l / (dist * dist))[..., None]
+    return l_i, w_i, dist, state
 
 
 def _shade_lambertian_direct(scene, cfg, rays, hit, albedo):
@@ -302,18 +415,36 @@ def shade(scene, cfg, rays, hit):
 
 
 def _shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state):
-    """w7e3/w8e3 path-traced Lambertian without lights: emission gating,
-    then a cosine-hemisphere continuation under Russian roulette
-    (``w8e3.wgsl:475-509``). Next-event estimation (area lights, the sun)
-    is not ported. Returns (color, new_rays, cont, factor', emit', state',
-    converged)."""
+    """w7e3/w8e3 path-traced Lambertian (``w8e3.wgsl:455-509``): one-sample
+    next-event estimation over the emissive triangles (``area_mc``) with a
+    shadow ray, emission gating, then a cosine-hemisphere continuation under
+    Russian roulette. The draws come in the JAX package's order: the light
+    slot, the two barycentric draws, the roulette draw, the warp's two.
+    Returns (color, new_rays, cont, factor', emit', state', converged)."""
     n_lanes = hit.t.shape[0]
     dev = hit.t.device
-    if "area_mc" in cfg.lights or "directional" in cfg.lights:
-        raise NotImplementedError(f"next-event estimation ({cfg.lights}) is not ported")
+    if "directional" in cfg.lights:
+        raise NotImplementedError("next-event estimation with the sun is not ported")
     brdf = vec.div(hit.albedo, PI)
+    nrm = hit.normal
     conv = torch.ones(n_lanes, dtype=torch.bool, device=dev)
     diffuse = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
+    L = int(scene.light_indices.shape[0])
+    if "area_mc" in cfg.lights and L > 0:
+        ri, state = rng.rnd_int(state)
+        l_i, w_i, dist, state = _sample_area_light_mc(scene, hit.position, ri % L, state)
+        sray = Rays(
+            o=hit.position,
+            d=w_i,
+            tmin=torch.full((n_lanes,), cfg.eta, dtype=torch.float32, device=dev),
+            tmax=dist - cfg.eta,
+        )
+        blocked, c1 = trace_occluded(scene, cfg, sray)
+        conv = conv & c1
+        contrib = brdf * vec.saturate(vec.dot(nrm, w_i))[..., None] * l_i * float(L)
+        if cfg.diffuse_factor:
+            contrib = contrib * factor
+        diffuse = vec.where(~blocked, contrib, 0.0)
     ambient = vec.where(emit, hit.emission, 0.0) if cfg.emit_gating else hit.emission
     if cfg.emission_factor:
         ambient = ambient * factor
@@ -326,7 +457,7 @@ def _shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state):
     prob = vec.mean3(brdf)
     step, state = rng.rnd(state)
     cont = step < prob
-    ind_dir, state_ind = sampling.cosine_hemisphere(hit.normal, state)
+    ind_dir, state_ind = sampling.cosine_hemisphere(nrm, state)
     state = torch.where(cont, state_ind, state)
     factor_new = vec.where(cont, factor_new / torch.clamp_min(prob, 1e-12)[..., None],
                            factor_new)
@@ -338,6 +469,88 @@ def _shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state):
     )
     emit_new = torch.where(cont, False, emit)
     return diffuse + ambient, new_rays, cont, factor_new, emit_new, state, conv
+
+
+def _reflect_continue(rays: Rays, hit: Hit, cfg: SceneConfig) -> Rays:
+    """``mirror`` (``w8e3.wgsl:512-525``): the reflected continuation ray,
+    offset by normal * ETA."""
+    nrm = hit.normal
+    d = vec.reflect(rays.d, nrm)
+    n_lanes, dev = d.shape[0], d.device
+    return Rays(
+        o=hit.position + nrm * cfg.eta,
+        d=d,
+        tmin=torch.full((n_lanes,), cfg.eta, dtype=torch.float32, device=dev),
+        tmax=torch.full((n_lanes,), cfg.tmax, dtype=torch.float32, device=dev),
+    )
+
+
+def _fresnel_r(cos_i, cos_t, ni_over_nt):
+    """``fresnel_r`` (``w9e2.wgsl:193-203``)."""
+    ii = ni_over_nt * cos_i
+    tt = cos_t
+    ti = cos_i
+    it = ni_over_nt * cos_t
+    r1 = (ii - tt) / (ii + tt)
+    r2 = (ti - it) / (ti + it)
+    return 0.5 * (r1 * r1 + r2 * r2)
+
+
+def _shade_transparent_path(scene, cfg, rays, hit, factor, state):
+    """Path-mode dielectric (``w8e3.wgsl:527-617``): one draw picks Fresnel
+    reflection, refraction or (``dielectric == "absorb"``, on exit only)
+    absorption, which ends the path. ``"simple"`` and ``"fresnel"`` absorb
+    nothing. Returns (color, new_rays, cont, factor', emit', state')."""
+    n_lanes = hit.t.shape[0]
+    dev = hit.t.device
+    ones3 = torch.ones((n_lanes, 3), dtype=torch.float32, device=dev)
+    w_i = -vec.normalize(rays.d, eps=1e-24)
+    nrm = vec.normalize(hit.normal, eps=1e-24)
+    cos_raw = vec.dot(w_i, nrm)
+    entering = cos_raw < 0.0
+    cos_i = torch.abs(cos_raw)
+    ior = torch.where(entering, hit.ior, torch.reciprocal(hit.ior))
+    out_normal = vec.where(entering, -nrm, nrm)
+
+    # Beer-Lambert transmittance on exit.
+    s = vec.div(vec.length(hit.position - rays.o), cfg.beer_distance_scale)
+    t_r_exit = vec.exp(-hit.extinction * s[..., None])
+    t_r = vec.where(entering, ones3, t_r_exit) if cfg.dielectric == "absorb" else ones3
+    transmission_prob = torch.where(entering, 1.0, vec.mean3(t_r))
+    if cfg.dielectric == "fresnel":
+        transmission_prob = torch.ones(n_lanes, dtype=torch.float32, device=dev)
+
+    cos_t2 = 1.0 - (ior * ior) * (1.0 - cos_i * cos_i)
+    tir = cos_t2 < 0.0
+    sq = vec.sqrt(torch.clamp_min(cos_t2, 0.0))
+    refl_prob = torch.where(tir, 1.0, _fresnel_r(cos_i, sq, ior))
+
+    tangent = out_normal * cos_i[..., None] - w_i
+    w_t = ior[..., None] * tangent - out_normal * sq[..., None]
+    # Faithful quirk: the reference calls mirror() after *r was already
+    # replaced by the refraction ray (w8e3.wgsl:560-566), so the
+    # "reflection" reflects w_t about out_normal, not the incident direction.
+    refl_o = hit.position + out_normal * cfg.eta
+    refl_d = vec.reflect(w_t, out_normal)
+
+    step, state = rng.rnd(state)
+    take_reflect = step < refl_prob
+    take_transmit = ~take_reflect & (step < refl_prob + transmission_prob)
+    # Neither: absorbed, the path ends (the hit stays recorded).
+    new_rays = Rays(
+        o=vec.where(take_reflect, refl_o, hit.position),
+        d=vec.where(take_reflect, refl_d, w_t),
+        tmin=torch.full((n_lanes,), cfg.eta, dtype=torch.float32, device=dev),
+        tmax=torch.full((n_lanes,), cfg.tmax, dtype=torch.float32, device=dev),
+    )
+    cont = take_reflect | take_transmit
+    # On transmission out of the medium the throughput picks up
+    # T_r / (refl + trans).
+    denom = torch.clamp_min(refl_prob + transmission_prob, 1e-8)
+    factor_new = vec.where(take_transmit & ~entering, factor * t_r / denom[..., None], factor)
+    color = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
+    emit_new = torch.ones(n_lanes, dtype=torch.bool, device=dev)
+    return color, new_rays, cont, factor_new, emit_new, state
 
 
 def _shade_holdout(scene, cfg, rays, hit, factor, state):
@@ -363,28 +576,32 @@ def _shade_holdout(scene, cfg, rays, hit, factor, state):
     return color, state, conv
 
 
+# Shader ids of the path-mode switch.
+PATH_SHADERS = frozenset(
+    {SHADER_LAMBERTIAN, SHADER_MIRROR, SHADER_TRANSPARENT, SHADER_HOLDOUT})
+
+
 def shade_path(scene, cfg, rays, hit, factor, emit, state):
     """Material dispatch of path mode (the WGSL ``shade`` switch,
     ``w9e2.wgsl:436-466``) as masked branch blending over the shaders the
-    scene can produce: Lambertian and holdout. Lanes of any other shader
-    get the error colour. Returns (color, new_rays, cont, factor', emit',
-    state', converged)."""
+    scene can produce, in the JAX package's order: Lambertian, mirror,
+    transparent, holdout. Lanes of any other shader get the error colour.
+    Returns (color, new_rays, cont, factor', emit', state', converged)."""
     n_lanes = hit.t.shape[0]
     dev = hit.t.device
     possible = set(cfg.possible_shaders)
-    if possible - {SHADER_LAMBERTIAN, SHADER_HOLDOUT}:
+    if possible - PATH_SHADERS:
         raise NotImplementedError(
-            f"shaders {sorted(possible - {SHADER_LAMBERTIAN, SHADER_HOLDOUT})} "
-            "are not ported in path mode")
+            f"shaders {sorted(possible - PATH_SHADERS)} are not ported in path mode")
     sid = hit.shader
     no = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
+    yes = torch.ones(n_lanes, dtype=torch.bool, device=dev)
     out = dict(
         color=torch.tensor(ERROR_COLOR, dtype=torch.float32, device=dev).expand(n_lanes, 3),
-        rays=rays, cont=no, factor=factor, emit=emit, state=state,
-        conv=torch.ones(n_lanes, dtype=torch.bool, device=dev),
+        rays=rays, cont=no, factor=factor, emit=emit, state=state, conv=yes,
     )
 
-    def merge(mask, c, nr, ct, f, e, s, cv):
+    def merge(mask, c, nr, ct, f, e, s, cv=yes):
         r = out["rays"]
         out["color"] = vec.where(mask, c, out["color"])
         out["rays"] = Rays(
@@ -402,6 +619,13 @@ def shade_path(scene, cfg, rays, hit, factor, emit, state):
     if SHADER_LAMBERTIAN in possible:
         m = sid == SHADER_LAMBERTIAN
         merge(m, *_shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state))
+    if SHADER_MIRROR in possible:
+        m = sid == SHADER_MIRROR
+        z3 = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
+        merge(m, z3, _reflect_continue(rays, hit, cfg), yes, factor, yes, state)
+    if SHADER_TRANSPARENT in possible:
+        m = sid == SHADER_TRANSPARENT
+        merge(m, *_shade_transparent_path(scene, cfg, rays, hit, factor, state))
     if SHADER_HOLDOUT in possible:
         m = sid == SHADER_HOLDOUT
         c, s, cv = _shade_holdout(scene, cfg, rays, hit, factor, state)
@@ -557,8 +781,9 @@ def render_sample_seeded(scene: Scene, cfg: SceneConfig, seed_t):
     per-sub-tile break bounds start at last frame's depths. Returns
     (radiance, next_seed); the radiance equals the unseeded render's, since
     lanes whose hint undershoots are re-traced by the repair pass. Scenes
-    of more than one bounce are not seeded: their seed passes through."""
-    if not _single_bounce(cfg):
+    of more than one bounce, and meshes off the treelet engines, are not
+    seeded: their seed passes through."""
+    if not _single_bounce(cfg) or _effective_traversal(scene, cfg) != "bvh":
         return render_sample(scene, cfg), seed_t
     return bounce_loop(scene, cfg, primary_rays(scene, cfg), seed_t=seed_t)
 

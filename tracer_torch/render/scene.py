@@ -1,5 +1,5 @@
 """Scene container: device tensors + static render configuration (port of
-``tracer.render.scene``).
+``tracer.render.scene``, and of the JAX package's ``Spheres`` container).
 
 ``SceneConfig`` is the JAX package's frozen configuration, field for field
 (the analog of the reference's per-scene WGSL shader). ``Scene`` holds the
@@ -23,6 +23,19 @@ from tracer_torch.render.texture import TextureBuf
 # Sentinel shader values meaning "resolve from uniforms at trace time".
 FROM_SELECTION1 = -1
 FROM_SELECTION2 = -2
+
+
+@dataclass(frozen=True)
+class Spheres:
+    """Analytic spheres with per-sphere shading setup (the reference hardcodes
+    these per scene, e.g. ``w8e3.wgsl:293-305``)."""
+
+    center: torch.Tensor  # (S, 3) f32
+    radius: torch.Tensor  # (S,) f32
+    shader: torch.Tensor  # (S,) i32
+    base_color: torch.Tensor  # (S, 3) f32
+    ior: torch.Tensor  # (S,) f32: ior1_over_ior2 assigned at hit
+    extinction: torch.Tensor  # (S, 3) f32: Beer-Lambert rho_t
 
 
 @dataclass(frozen=True)
@@ -96,9 +109,12 @@ class Scene:
     geom: GeometryBuffers
     materials: MaterialTable
     light_indices: torch.Tensor  # (L,) i32 emissive triangle ids
-    tb: Optional[TreeletBvh]  # treelet BVH of the flat and packet engines
+    # Treelet BVH of the flat and packet engines; None on the brute-force
+    # route (meshes of 64 triangles or fewer).
+    tb: Optional[TreeletBvh]
     planes: Optional[Planes] = None  # analytic planes (None: no planes)
     env: Optional[TextureBuf] = None  # environment map (None: bg_color)
+    spheres: Optional[Spheres] = None  # analytic spheres (None: no spheres)
 
     @property
     def device(self) -> torch.device:

@@ -1,11 +1,13 @@
 """Scene building: descriptor -> device ``Scene`` (port of
-``tracer.scenes.build.build_scene`` for mesh rows on the treelet engines).
+``tracer.scenes.build.build_scene`` for mesh rows).
 
-Loads the model (or its procedural stand-in), builds the LBVH with the
-native C++ code, cuts it into treelets, uploads the mesh and the analytic
-planes, gathers the block table on the device and reads the environment
-map. Rows the port does not cover yet raise ``NotImplementedError`` before
-any work is done.
+Loads the model (or its procedural stand-in); for meshes of more than 64
+triangles builds the LBVH with the native C++ code, cuts it into treelets
+and gathers the block table on the device, while smaller meshes take the
+brute-force engine and get no acceleration structure, as in the JAX
+package. Uploads the mesh and the analytic spheres and planes and reads
+the environment map. Rows the port does not cover yet raise
+``NotImplementedError`` before any work is done.
 """
 
 from __future__ import annotations
@@ -20,24 +22,22 @@ import torch
 from tracer_torch.accel import lbvh
 from tracer_torch.accel import treelet as treelet_mod
 from tracer_torch.geometry import obj as obj_mod
-from tracer_torch.geometry.device import (
-    SHADER_HOLDOUT,
-    SHADER_LAMBERTIAN,
-    Planes,
-    upload_mesh,
-)
+from tracer_torch.geometry.device import SHADER_LAMBERTIAN, Planes, upload_mesh
 from tracer_torch.geometry.procedural import standin_for
 from tracer_torch.render.camera import make_camera
+from tracer_torch.render.integrator import PATH_SHADERS
 from tracer_torch.render.scene import (
     FROM_SELECTION1,
     FROM_SELECTION2,
     Scene,
     SceneConfig,
+    Spheres,
     Uniforms,
 )
 from tracer_torch.scenes.registry import SceneDescriptor
 
 TREELET_T = 1024  # triangles per treelet block
+BRUTE_MAX_TRIANGLES = 64  # meshes this small take the brute-force engine
 
 
 def _resolve_static(shader_code: int, desc: SceneDescriptor) -> int:
@@ -66,25 +66,28 @@ def _possible_shaders(desc: SceneDescriptor) -> tuple:
 
 def unsupported(desc: SceneDescriptor, cfg: SceneConfig) -> list[str]:
     """Why this row is outside the ported slices ([] when it is inside):
-    direct mode as ``Project: Dragon`` runs it, or path mode without lights
-    on a mesh and analytic planes with the Lambertian and holdout shaders
-    (``W9 E1``/``W9 E2``)."""
+    direct mode as ``Project: Dragon`` runs it, or path mode on a mesh with
+    analytic spheres and planes, next-event estimation over the emissive
+    triangles (``area_mc``) or no lights, and the Lambertian, mirror,
+    transparent and holdout shaders (``W7 E3``, ``W8 E1``-``E3``,
+    ``W9 E1``/``W9 E2``). The mesh may take the treelet engines or the
+    brute-force engine."""
     why = []
     if desc.model is None:
         why.append("no triangle mesh")
-    if desc.spheres or desc.tris:
-        why.append("analytic spheres or triangles")
+    if desc.tris:
+        why.append("analytic triangles")
     treelet = cfg.traversal == "bvh" or (
         cfg.traversal == "bsp" and cfg.bsp_execution == "fast")
-    if not treelet:
+    if not (treelet or cfg.traversal == "brute"):
         why.append(f"traversal {cfg.traversal!r} ({cfg.bsp_execution})")
     if desc.texture or cfg.plane_texture:
         why.append("plane textures")
     if cfg.subdivs > 1:
         why.append(f"subdivs {cfg.subdivs}")
     if cfg.mode == "direct":
-        if desc.planes:
-            why.append("analytic planes in direct mode")
+        if desc.planes or desc.spheres:
+            why.append("analytic planes or spheres in direct mode")
         if any(k != "directional_n" for k in cfg.lights):
             why.append(f"lights {cfg.lights}")
         if cfg.shadows:
@@ -96,12 +99,14 @@ def unsupported(desc: SceneDescriptor, cfg: SceneConfig) -> list[str]:
         if set(cfg.possible_shaders) - {SHADER_LAMBERTIAN}:
             why.append(f"shaders {cfg.possible_shaders}")
     elif cfg.mode == "path":
-        if cfg.lights != ("none",):
+        if cfg.lights not in (("none",), ("area_mc",)):
             why.append(f"lights {cfg.lights} (next-event estimation)")
         if cfg.loop != "while":
             why.append(f"bounce loop {cfg.loop!r}")
-        if set(cfg.possible_shaders) - {SHADER_LAMBERTIAN, SHADER_HOLDOUT}:
+        if set(cfg.possible_shaders) - PATH_SHADERS:
             why.append(f"shaders {cfg.possible_shaders}")
+        if cfg.dielectric not in ("simple", "fresnel", "absorb"):
+            why.append(f"dielectric {cfg.dielectric!r}")
     else:
         why.append(f"mode {cfg.mode!r}")
     return why
@@ -156,22 +161,26 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
 
     mesh = load_mesh(desc.model, desc.model_scale)
     mark("mesh_load")
-    if mesh.num_triangles <= 64:
-        # The JAX package traces tiny meshes by brute force, not ported yet.
-        raise NotImplementedError(
-            f"scene {desc.name!r}: {mesh.num_triangles}-triangle mesh takes "
-            "the brute-force engine, which is outside the ported slice")
-    binary = lbvh.build_for_mesh(mesh, max_prims=desc.bvh_leaf, native=True)
-    host = treelet_mod.build_host(binary, T=TREELET_T)
+    if mesh.num_triangles <= BRUTE_MAX_TRIANGLES and cfg.traversal in ("bvh", "bsp"):
+        # A dense sweep over a tiny mesh needs no acceleration structure.
+        cfg = dataclasses.replace(cfg, traversal="brute")
+    host = None
+    if cfg.traversal != "brute":
+        binary = lbvh.build_for_mesh(mesh, max_prims=desc.bvh_leaf, native=True)
+        host = treelet_mod.build_host(binary, T=TREELET_T)
     mark("accel_host")
     geom, materials, light_indices = upload_mesh(mesh, device)
     mark("upload")
-    tb = treelet_mod.from_host(host, geom.vertices, geom.indices)
+    tb = None if host is None else treelet_mod.from_host(host, geom.vertices, geom.indices)
     mark("device_assembly")
-    planes = None
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=device)
+    spheres = planes = None
+    if desc.spheres:
+        c, r, sh, bc, ior, ext = zip(*desc.spheres)
+        spheres = Spheres(center=f32(c), radius=f32(r), shader=i32(sh), base_color=f32(bc),
+                          ior=f32(ior), extinction=f32(ext))
     if desc.planes:
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
-        i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=device)
         p, nrm, tg, bn, sh, bc, txd = zip(*desc.planes)
         planes = Planes(position=f32(p), normal=f32(nrm), tangent=f32(tg),
                         binormal=f32(bn), shader=i32(sh), base_color=f32(bc),
@@ -186,6 +195,7 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
         tb=tb,
         planes=planes,
         env=env,
+        spheres=spheres,
     )
     if timings is not None:
         marks["total"] = time.perf_counter() - t_start
