@@ -87,7 +87,29 @@ Phases (each raises on failure, so the script exits non-zero):
               32x32 frame agrees with the JAX package's numbers
               (``CORNELL_REF``). Then ``W8 E1`` and ``W8 E2 Cornell Box
               Balls`` at 512x512 and ``W7 E3 Cornell Box`` at 128x128, 1
-              warm-up and 3 frames each (ms/frame), with the same checks.
+              warm-up and 3 frames each (ms/frame), with the same checks;
+9. pgrad    — path-mode gradients (``grad_scene``, ``loop="scan"``, target
+              zeros). ``W8 E3 Absorption`` at 512x512, depth 10, remat
+              "none": 1 warm-up and 3 timed steps (ms/step by CUDA events and
+              the host clock, paths/s, peak allocated memory), one step with
+              a spy (bounces) and one under ``torch.profiler`` (kernels,
+              device busy time, idle share; the forward alone is profiled
+              apart, which gives the backward's share of busy time), and one
+              timed ``remat="full"`` step beside it. Checks: every leaf
+              finite, the diffuse, emission, vertex, sphere-center and eye
+              gradients nonzero, two steps (and the remat step) equal bit
+              for bit, no hand kernel and no twin launched, ``fd_check`` on
+              the diffuse albedo at 64x64, and a 16x16 gradient against the
+              JAX package's numbers (``CORNELL_GRAD_REF``). Then ``W9 E1
+              Bunny`` at 256x256 (cut from 512x512), depth 50, seeded
+              environment: 1 warm-up and 2 timed steps (ms/step, peak
+              memory), bounces, B3's and B2's launches and B2's rows per
+              launch; checks that B3 ran on every bounce and B2 once per
+              bounce but the last (whose rows reach nothing that the loss
+              reads), no twin ran, every leaf is finite and two steps agree
+              bit for bit, and holds B2 against its twin on bounce 2's
+              sorted corner stream of the path lanes (with its real
+              cotangents and with seeded ones on the same ids).
 
 Prints one JSON object of per-kernel results on the line before the last,
 and ``{"ok": true, "device": {...}}`` as the last line. Imports nothing of
@@ -162,6 +184,31 @@ PATH_RTOL = 1e-4
 CORNELL_REF = dict(sum=690.4276269679613, sumsq=6906.90693658513, max=39.46552276611328)
 CORNELL_RTOL = 1e-4
 
+# The JAX package's path-mode gradient of W8 E3 Absorption at 16x16
+# (tracer.diff.grad.grad_scene with loop="scan", registry depth 10, target
+# zeros, one sample, on the CPU): per leaf (sum, sum of |x|, sum of x^2) in
+# float64, as BUNNY_GRAD_REF. ``tests/test_torch_path_grad.py`` recomputes
+# them from JAX. Not 32x32: there the JAX package's gradient is NaN on every
+# leaf that the camera and geometry reach (a lane's 0 x inf in its
+# backward; the port's is finite), which that test also holds.
+CORNELL_GRAD_REF = {
+    "camera.eye": (-0.001508608111180365, 0.007523425971157849, 2.2089079535796296e-05),
+    "camera.target": (0.0006278645014390349, 0.012295853928662837, 7.579111747525758e-05),
+    "camera.up": (0.3158331513404846, 0.3158331513404846, 0.09975057948566146),
+    "camera.constant": (-1.2127290964126587, 1.2127290964126587, 1.4707118612858636),
+    "camera.aspect": (0.7801536321640015, 0.7801536321640015, 0.6086396897786841),
+    "geom.vertices": (-0.0030979987592879214, 0.009339761012756465, 8.531555513393352e-06),
+    "materials.diffuse": (0.1304906071163714, 0.25911700120195746, 0.0169910541338914),
+    "materials.emission": (0.5281694909208454, 0.5281694909208454, 0.04878203152946211),
+    "spheres.center": (0.003978742983447248, 0.004036960878410767, 9.286682899993443e-06),
+    "spheres.radius": (0.0022303962132568245, 0.0022305406646196957, 4.974989462316228e-06),
+    "spheres.ior": (2.2453364181274083e-06, 2.2453364181274083e-06, 5.0415356305692195e-12),
+    "spheres.extinction": (-2.0552236264848034e-05, 6.768842399651476e-05, 2.411582938374381e-09),
+}
+CORNELL_GRAD_ZERO = ("geom.normals", "geom.tri_table", "materials.specular",
+                     "materials.shininess", "materials.ior", "spheres.base_color")
+CORNELL_GRAD_RTOL = 1e-4
+
 
 def seeded_env(rgbe: bool, seed: int = 0, shape=(32, 64)) -> np.ndarray:
     """An (H, W, 4) float32 environment map of random 8-bit texels from
@@ -195,15 +242,17 @@ def grad_stats(arrays: dict) -> dict:
     return out
 
 
-def bunny_grad_errors(stats: dict, rtol: float = BUNNY_GRAD_RTOL) -> list:
-    """The statistics of ``stats`` that miss ``BUNNY_GRAD_REF`` by more than
-    ``rtol`` of their scale, and nonzero leaves that must be zero."""
+def bunny_grad_errors(stats: dict, rtol: float = BUNNY_GRAD_RTOL, ref: dict = BUNNY_GRAD_REF,
+                      zero: tuple = BUNNY_GRAD_ZERO) -> list:
+    """The statistics of ``stats`` that miss ``ref`` (``BUNNY_GRAD_REF``) by
+    more than ``rtol`` of their scale, and nonzero leaves that must be
+    zero."""
     bad = []
-    for k, (s, a, q) in BUNNY_GRAD_REF.items():
+    for k, (s, a, q) in ref.items():
         gs, ga, gq = stats[k]
         if abs(gs - s) > rtol * a or abs(ga - a) > rtol * a or abs(gq - q) > rtol * q:
             bad.append(f"{k}: ({gs!r}, {ga!r}, {gq!r}) vs ({s!r}, {a!r}, {q!r})")
-    bad += [f"{k} is not zero" for k in BUNNY_GRAD_ZERO if stats[k][1] != 0.0]
+    bad += [f"{k} is not zero" for k in zero if stats[k][1] != 0.0]
     return bad
 
 
@@ -879,6 +928,207 @@ def cornell_phase(dev, card: str, kernels) -> None:
         run(name, size, 3)
 
 
+def timed_steps(step, n: int) -> tuple[float, float, int]:
+    """``n`` calls of ``step`` after a synchronize: ms per call by CUDA events
+    and by the host clock, and the peak of allocated device memory over them
+    (bytes)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / n, (time.perf_counter() - t0) / n * 1e3,
+            torch.cuda.max_memory_allocated())
+
+
+def grad_checks(name: str, g, prev, nonzero) -> dict:
+    """A scene gradient's checks: every leaf finite, the leaves of
+    ``nonzero`` nonzero, and ``g`` bitwise equal to ``prev`` (an earlier
+    step on the same inputs) on every leaf. Returns ``g`` as arrays."""
+    from tracer_torch import convert
+
+    ga, gp = convert.grads_to_arrays(g), convert.grads_to_arrays(prev)
+    if ga.keys() != gp.keys():
+        raise AssertionError(f"{name}: two steps returned different leaves")
+    for k, a in ga.items():
+        if not np.isfinite(a).all():
+            raise AssertionError(f"{name} {k}: non-finite gradient")
+        if not np.array_equal(a.view(np.int32), gp[k].view(np.int32)):
+            raise AssertionError(f"{name} {k}: two gradient steps differ")
+    for k in nonzero:
+        if not np.abs(ga[k]).sum() > 0:
+            raise AssertionError(f"{name} {k}: gradient is zero")
+    return ga
+
+
+def pgrad_phase(dev, card: str, kernels) -> dict:
+    """Phase 9: path-mode gradients through the ``scan`` bounce loop (see
+    the module docstring). Raises on any failed check; returns the kernel
+    launches and B2's largest error for the ``kernels`` line."""
+    from tracer_torch import convert
+    from tracer_torch.diff import grad as G
+    from tracer_torch.kernels import scatter_vn, super_hits, treelet_hits
+    from tracer_torch.render import integrator
+    from tracer_torch.scenes.build import build_scene
+    from tracer_torch.scenes.registry import get_scene
+
+    def sized(name, size, **kw):
+        desc = get_scene(name)
+        if os.path.basename(desc.model or "") in FIXTURE_MODELS:
+            desc = with_fixture_model(desc)
+        return dataclasses.replace(desc, cfg=dataclasses.replace(
+            desc.cfg, width=size, height=size, loop="scan", **kw))
+
+    def counts():
+        return [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in kernels]
+
+    def reset():
+        for m in kernels:
+            m.KERNEL_LAUNCHES = m.REFERENCE_CALLS = 0
+
+    gib = 2.0 ** 30
+
+    # 9a. W8 E3 Absorption at 512x512: 1 warm-up and 3 timed steps.
+    desc = sized("W8 E3 Absorption", 512)
+    scene, cfg = build_scene(desc, dev)
+    if (cfg.width, cfg.height, cfg.max_depth, cfg.remat) != (512, 512, 10, "none") \
+            or cfg.traversal != "brute" or scene.spheres.radius.shape[0] != 2:
+        raise AssertionError("the W8 E3 gradient step is not at full size")
+    n = cfg.width * cfg.height
+    target = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    out = {}
+    step = lambda c=cfg: out.__setitem__("g", G.grad_scene(scene, c, target))
+    reset()
+    step()
+    first = out["g"]
+    steps = 3
+    ms, host_ms, peak = timed_steps(step, steps)
+    if counts() != [(0, 0)] * len(kernels):
+        raise AssertionError(f"the W8 E3 gradient ran a hand kernel or a twin: {counts()}")
+    log(f"[pgrad] W8 E3 Absorption {cfg.width}x{cfg.height}, max_depth {cfg.max_depth}, "
+        f"loop scan, remat none, target zeros; {steps} steps after 1: {ms:.3f} ms/step (CUDA "
+        f"events), {host_ms:.3f} ms/step (host clock), {n / (ms * 1e-3):.1f} paths/s, peak "
+        f"memory {peak / gib:.3f} GiB (max_memory_allocated over the timed steps); {card}")
+    ga = grad_checks("W8 E3", out["g"], first, ("materials.diffuse", "materials.emission",
+                                                 "geom.vertices", "spheres.center", "camera.eye"))
+    log("[pgrad] every leaf finite; two steps equal bitwise on every leaf; "
+        + ", ".join(f"{k} sum|g| {float(np.abs(a).sum()):.6g}" for k, a in ga.items()
+                    if np.abs(a).sum() > 0))
+    bounces = []
+    bounce = integrator._bounce
+    integrator._bounce = lambda *a: bounces.append(1) or bounce(*a)
+    try:
+        step()
+    finally:
+        integrator._bounce = bounce
+    prof = profile_step(step, {})
+    with torch.no_grad():
+        fwd = profile_step(lambda: G.l2_loss(scene, cfg, target).item(), {})
+    if prof and fwd:
+        log(f"[pgrad] profiled W8 E3 step: {len(bounces)} bounces, {prof['kernels']} kernels, "
+            f"device busy {prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms trace (idle "
+            f"{prof['idle']:.1%}); the forward alone (no graph, profiled apart) "
+            f"{fwd['kernels']} kernels, "
+            f"busy {fwd['busy_ms']:.3f} ms, so the backward is "
+            f"{1.0 - fwd['busy_ms'] / prof['busy_ms']:.1%} of the step's busy time; {card}")
+    else:
+        log("[pgrad] the profiler recorded no device time")
+    full = dataclasses.replace(cfg, remat="full")
+    step(full)
+    f_ms, f_host_ms, f_peak = timed_steps(lambda: step(full), 1)
+    grad_checks("W8 E3 remat full", out["g"], first, ())
+    log(f"[pgrad] W8 E3 remat full, 1 step after 1: {f_ms:.3f} ms/step (CUDA events), "
+        f"{f_host_ms:.3f} ms/step (host clock), peak memory {f_peak / gib:.3f} GiB; beside "
+        f"remat none {ms:.3f} ms/step and {peak / gib:.3f} GiB; equal to it bitwise; {card}")
+
+    # 9b. fd_check at 64x64 and the 16x16 gradient against the JAX package's.
+    sscene, scfg = build_scene(sized("W8 E3 Absorption", 64), dev)
+
+    def set_diffuse(s, leaf):
+        return dataclasses.replace(s, materials=dataclasses.replace(s.materials, diffuse=leaf))
+
+    ad, fd = G.fd_check(sscene, scfg, torch.zeros((64 * 64, 3), device=dev),
+                        lambda s: s.materials.diffuse, set_diffuse,
+                        torch.ones_like(sscene.materials.diffuse) * 0.01, eps=3e-2, rtol=0.15)
+    log(f"[pgrad] W8 E3 64x64 fd_check materials.diffuse (eps 3e-2, rtol 0.15): ad {ad!r} "
+        f"fd {fd!r}")
+    sscene, scfg = build_scene(sized("W8 E3 Absorption", 16), dev)
+    g16 = G.grad_scene(sscene, scfg, torch.zeros((16 * 16, 3), device=dev))
+    stats = grad_stats(convert.grads_to_arrays(g16))
+    bad = bunny_grad_errors(stats, CORNELL_GRAD_RTOL, CORNELL_GRAD_REF, CORNELL_GRAD_ZERO)
+    for k in CORNELL_GRAD_REF:
+        log(f"[pgrad 16x16] {k}: sum, sum|x|, sum x^2 = {stats[k]} (JAX: {CORNELL_GRAD_REF[k]})")
+    if bad:
+        raise AssertionError("the 16x16 W8 E3 gradient disagrees with the JAX package: "
+                             + "; ".join(bad))
+    log(f"[pgrad 16x16] agrees with the JAX package at rtol {CORNELL_GRAD_RTOL}")
+    if counts() != [(0, 0)] * len(kernels):
+        raise AssertionError(f"the W8 E3 gradients ran a hand kernel or a twin: {counts()}")
+
+    # 9c. W9 E1 Bunny at 256x256 (cut from 512x512), depth 50, seeded environment.
+    wdesc = sized("W9 E1 Bunny", 256)
+    wscene, wcfg = build_scene(wdesc, dev)
+    wscene = with_seeded_env(wscene, wdesc, dev)
+    if wcfg.max_depth != 50 or wscene.geom.indices.shape[0] != 69_564:
+        raise AssertionError("the W9 E1 gradient step is not at its depth and mesh")
+    wn = wcfg.width * wcfg.height
+    wtarget = torch.zeros((wn, 3), dtype=torch.float32, device=dev)
+    wstep = lambda: out.__setitem__("w", G.grad_scene(wscene, wcfg, wtarget))
+    reset()
+    wstep()
+    wfirst = out["w"]
+    per_step = [treelet_hits.KERNEL_LAUNCHES, scatter_vn.KERNEL_LAUNCHES]
+    w_ms, w_host_ms, w_peak = timed_steps(wstep, 2)
+    b3_launches, b2_launches = treelet_hits.KERNEL_LAUNCHES, scatter_vn.KERNEL_LAUNCHES
+    twin_calls = sum(m.REFERENCE_CALLS for m in kernels)
+    ga = grad_checks("W9 E1", out["w"], wfirst, ("camera.eye", "env.data"))
+    # One more step with spies: bounces, and B2's sorted corner streams.
+    streams, bounces = [], []
+    place, bounce = scatter_vn.segment_place, integrator._bounce
+    scatter_vn.segment_place = lambda *a: streams.append(a) or place(*a)
+    integrator._bounce = lambda *a: bounces.append(1) or bounce(*a)
+    try:
+        wstep()
+    finally:
+        scatter_vn.segment_place, integrator._bounce = place, bounce
+    rows = [a[0].shape[0] for a in streams]
+    log(f"[pgrad] W9 E1 Bunny {wcfg.width}x{wcfg.height} (cut from 512x512), max_depth "
+        f"{wcfg.max_depth}, seeded environment, loop scan, target zeros; 2 steps after 1: "
+        f"{w_ms:.3f} ms/step (CUDA events), {w_host_ms:.3f} ms/step (host clock), peak memory "
+        f"{w_peak / gib:.3f} GiB; {len(bounces)} bounces per step; B3 launches {b3_launches} "
+        f"and B2 launches {b2_launches} over 3 steps (first step {per_step}), twin calls "
+        f"{twin_calls}; B2 rows per launch {rows} (mean {np.mean(rows):.0f}); {card}")
+    if super_hits.KERNEL_LAUNCHES or twin_calls:
+        raise AssertionError("the W9 E1 gradient ran B1 or a twin")
+    # B2 places the rows of every bounce but the last: the last bounce's rows
+    # reach only the next ray and throughput, which no bounce reads, so the
+    # backward never reaches their fetch (W9 E1 has no next-event estimation).
+    if per_step[1] != len(bounces) - 1 or b2_launches != 3 * per_step[1] or len(streams) != \
+            per_step[1] or b3_launches < 3 * len(bounces):
+        raise AssertionError("B2 did not run once per bounce but the last, or B3 not on every "
+                             "bounce")
+    log("[pgrad] W9 E1 every leaf finite; two steps equal bitwise on every leaf; "
+        + ", ".join(f"{k} sum|g| {float(np.abs(a).sum()):.6g}" for k, a in ga.items()
+                    if np.abs(a).sum() > 0))
+
+    # 9d. B2 against its twin on a path-lane stream: bounce 2's sorted corners
+    # (the backward places the bounces last first), with their real
+    # cotangents and with seeded ones on the same ids.
+    sids, svals, v = streams[-2]
+    nonzero = int((svals != 0).any(dim=1).sum())
+    err = check_segment_place(f"W9 E1 path gradient bounce 2 ({nonzero} nonzero rows)",
+                              sids, svals, v)
+    rs = np.random.RandomState(0)
+    seeded = torch.as_tensor(rs.standard_normal(tuple(svals.shape)).astype(np.float32),
+                             device=dev)
+    err = max(err, check_segment_place("W9 E1 bounce 2 ids, seeded cotangents", sids, seeded, v))
+    return dict(b2_launches=b2_launches, b3_launches=b3_launches, b2_err=err)
+
+
 def profile_step(step, keys: dict) -> dict:
     """One call of ``step`` under ``torch.profiler``: kernels, device busy
     time (the union of the device intervals), the traced span (first to
@@ -1406,6 +1656,10 @@ def main() -> int:
     # 8. Path mode in the Cornell box (the brute-force engine; no hand kernel).
     cornell_phase(dev, card, kernels)
 
+    # 9. Path-mode gradients: W8 E3 (no hand kernel) and W9 E1 (B3 and B2).
+    pg = pgrad_phase(dev, card, kernels)
+    b2_err = max(b2_err, pg["b2_err"])
+
     log(json.dumps({"kernels": [{
         "name": "super_hits.hits2",
         "route": "cuda",
@@ -1424,7 +1678,7 @@ def main() -> int:
         "route": "cuda",
         "source": "tracer_torch/csrc/scatter_vn.cu",
         "replaces": "tracer/kernels/scatter_vn.py:109",
-        "launches": g_launches["scatter_vn"],
+        "launches": g_launches["scatter_vn"] + pg["b2_launches"],
         "max_abs_err": b2_err,
         "ms": b2_ms,
         "device_ms": b2_device_ms,
@@ -1437,7 +1691,7 @@ def main() -> int:
         "route": "cuda",
         "source": "tracer_torch/csrc/treelet_hits.cu",
         "replaces": "tracer/kernels/treelet_hits.py:160",
-        "launches": p_launches + e_launches,
+        "launches": p_launches + e_launches + pg["b3_launches"],
         "max_abs_err": b3_err,
         "ms": b3_ms,
         "plain_ms": b3_plain_ms,

@@ -21,6 +21,7 @@ import pytest
 import torch
 from _share_cores import share_cores
 
+from chip_smoke import with_fixture_model
 from tracer.accel import lbvh as jax_lbvh
 from tracer.accel import treelet as jax_treelet
 from tracer.geometry import obj as jax_obj
@@ -32,7 +33,7 @@ import tracer_torch
 from tracer_torch.accel import lbvh, native, treelet
 from tracer_torch.geometry import obj, procedural
 from tracer_torch.geometry.device import _tri_table, upload_mesh
-from tracer_torch.scenes import registry
+from tracer_torch.scenes import build, registry
 from tracer_torch.scenes.build import build_scene
 
 share_cores()
@@ -183,6 +184,20 @@ def test_registry_matches_jax():
 def test_build_scene_rejects_rows_outside_slice(name):
     with pytest.raises(NotImplementedError, match="outside the ported slice"):
         build_scene(registry.get_scene(name), "cpu")
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_build_scene_admits_the_scan_loop(remat):
+    """``W8 E3 Absorption`` builds with the differentiable ``scan`` bounce
+    loop under each ``remat`` policy."""
+    desc = with_fixture_model(registry.get_scene("W8 E3 Absorption"))
+    desc = dataclasses.replace(desc, cfg=dataclasses.replace(
+        desc.cfg, width=8, height=8, loop="scan", remat=remat))
+    _, cfg = build_scene(desc, "cpu")
+    assert (cfg.loop, cfg.remat, cfg.traversal) == ("scan", remat, "brute")
+    assert build.unsupported(desc, cfg) == []
+    bad = dataclasses.replace(cfg, remat="offload")
+    assert build.unsupported(desc, bad) == ["remat 'offload'"]
 
 
 def test_cuda_device_never_falls_back(monkeypatch):

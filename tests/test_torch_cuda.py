@@ -1,6 +1,6 @@
 """Tests that need the card: the CUDA kernels (super-tile hits B1, vertex-
 cotangent placement B2, treelet hits B3) against their plain-PyTorch twins,
-and the ported frame, gradient step and path-mode frames on the card
+and the ported frame, gradient steps and path-mode frames on the card
 against the same on the CPU. They skip where PyTorch sees no CUDA device.
 
 This file imports nothing of JAX, so it also runs on a machine without it;
@@ -28,11 +28,12 @@ Tolerances:
   engine's per-pair Möller test and the shaders use only exactly rounded
   float32 operations and float64 transcendentals, and ``argmin`` keeps the
   first of equal distances on both devices.
-* The gradient: two card runs bit for bit. Card against CPU at rtol 1e-4
-  with an atol of 1e-5 of each leaf's largest magnitude, not bitwise:
-  the reductions over the lanes (the camera's broadcast to every ray, the
-  material product's backward) run in CUDA's and cuBLAS's summation
-  orders on the card and in the CPU's orders here.
+* The gradient (the dragon's single bounce, and the path gradients of W8
+  E3 at 64x64 and W9 E1 at 32x32): two card runs bit for bit. Card against
+  CPU at rtol 1e-4 with an atol of 1e-5 of each leaf's largest magnitude,
+  not bitwise: the reductions over the lanes (the camera's broadcast to
+  every ray, the one-hot products' backward) run in CUDA's and cuBLAS's
+  summation orders on the card and in the CPU's orders here.
 """
 
 from __future__ import annotations
@@ -272,10 +273,10 @@ def test_bunny_gradient_on_card_matches_cpu(cuda):
         if dev is cuda:
             for m, (launches, calls) in zip((super_hits, scatter_vn), counts):
                 assert m.KERNEL_LAUNCHES >= launches + 2 and m.REFERENCE_CALLS == calls
-            for k in G.FLOAT_LEAVES:
+            for k in runs[0]:
                 assert _bits_equal(torch.as_tensor(runs[0][k]), torch.as_tensor(runs[1][k])), k
         grads[str(dev)] = runs[0]
-    for k in G.FLOAT_LEAVES:
+    for k in grads["cpu"]:
         want = grads["cpu"][k]
         scale = float(np.abs(want).max()) if want.size else 0.0
         np.testing.assert_allclose(grads[str(cuda)][k], want, rtol=1e-4, atol=1e-5 * scale,
@@ -381,3 +382,90 @@ def test_cornell_frames_on_card_match_cpu(cuda, name, size):
     assert _bits_equal(accs["cpu"], accs[str(cuda)])
     assert float(accs["cpu"].max()) > 0 and bool((accs["cpu"] >= 0).all())
     assert [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in mods] == counts
+
+
+@pytest.mark.cuda
+def test_w8e3_path_gradient_on_card_matches_cpu(cuda):
+    """The W8 E3 path gradient at 64x64 (``loop="scan"``, target zeros): two
+    card runs equal bit for bit, one more equal to them under
+    ``torch.use_deterministic_algorithms`` with no warning but cuBLAS's
+    workspace note, no hand kernel launched, and the card's gradient
+    within rtol 1e-4 and an atol of 1e-5 of each leaf's largest magnitude
+    of the CPU's (the backward's reductions sum in other orders)."""
+    import warnings
+
+    desc = with_fixture_model(get_scene("W8 E3 Absorption"))
+    desc = dataclasses.replace(desc, cfg=dataclasses.replace(
+        desc.cfg, width=64, height=64, loop="scan"))
+    mods = (super_hits, scatter_vn, treelet_hits)
+    counts = [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in mods]
+    grads = {}
+    for dev in ("cpu", cuda):
+        scene, cfg = build_scene(desc, dev)
+        target = torch.zeros((64 * 64, 3), device=dev)
+        grads[str(dev)] = convert.grads_to_arrays(G.grad_scene(scene, cfg, target))
+    card = grads[str(cuda)]
+    again = convert.grads_to_arrays(G.grad_scene(scene, cfg, target))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            strict = convert.grads_to_arrays(G.grad_scene(scene, cfg, target))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    noted = [str(w.message) for w in caught if "CuBLAS" not in str(w.message)]
+    assert noted == []
+    for k in card:
+        assert np.isfinite(card[k]).all(), k
+        assert _bits_equal(torch.as_tensor(card[k]), torch.as_tensor(again[k])), k
+        assert _bits_equal(torch.as_tensor(card[k]), torch.as_tensor(strict[k])), k
+        want = grads["cpu"][k]
+        scale = float(np.abs(want).max()) if want.size else 0.0
+        np.testing.assert_allclose(card[k], want, rtol=1e-4, atol=1e-5 * scale, err_msg=k)
+    assert np.abs(card["geom.vertices"]).sum() > 0 and np.abs(card["spheres.center"]).sum() > 0
+    assert [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in mods] == counts
+
+
+@pytest.mark.cuda
+def test_w9e1_path_gradient_runs_b3_and_b2(cuda):
+    """The W9 E1 path gradient at 32x32, depth 3 (seeded environment): B3
+    in the forward and B2 in the backward, never their twins; two card runs
+    equal bit for bit and within rtol 1e-4 (atol 1e-5 of each leaf's
+    largest magnitude) of the CPU's; and B2 on a path-lane corner stream of
+    that backward equal bit for bit to its twin run on a CPU copy, with the
+    stream's cotangents and with seeded ones on the same ids."""
+    desc = get_scene("W9 E1 Bunny")
+    desc = dataclasses.replace(desc, cfg=dataclasses.replace(
+        desc.cfg, width=32, height=32, max_depth=3, loop="scan"))
+    grads = {}
+    for dev in ("cpu", cuda):
+        scene, cfg = build_scene(desc, dev)
+        scene = with_seeded_env(scene, desc, dev)
+        target = torch.zeros((32 * 32, 3), device=dev)
+        grads[str(dev)] = convert.grads_to_arrays(G.grad_scene(scene, cfg, target))
+    streams = []
+    place = scatter_vn.segment_place
+    counts = [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in (treelet_hits, scatter_vn)]
+    scatter_vn.segment_place = lambda *a: streams.append(a) or place(*a)
+    try:
+        again = convert.grads_to_arrays(G.grad_scene(scene, cfg, target))
+    finally:
+        scatter_vn.segment_place = place
+    (b3, b3_twin), (b2, b2_twin) = [(m.KERNEL_LAUNCHES - c[0], m.REFERENCE_CALLS - c[1])
+                                    for m, c in zip((treelet_hits, scatter_vn), counts)]
+    assert b3 >= 2 and b2 == len(streams) >= 1 and b3_twin == b2_twin == 0
+    card = grads[str(cuda)]
+    for k in card:
+        assert np.isfinite(card[k]).all(), k
+        assert _bits_equal(torch.as_tensor(card[k]), torch.as_tensor(again[k])), k
+        want = grads["cpu"][k]
+        scale = float(np.abs(want).max()) if want.size else 0.0
+        np.testing.assert_allclose(card[k], want, rtol=1e-4, atol=1e-5 * scale, err_msg=k)
+    assert np.abs(card["env.data"]).sum() > 0
+    sids, svals, V = streams[-1]
+    seeded = torch.as_tensor(np.random.RandomState(0).standard_normal(tuple(svals.shape))
+                             .astype(np.float32), device=cuda)
+    for vals in (svals, seeded):
+        got = scatter_vn.segment_place(sids, vals, V)
+        want = scatter_vn.segment_place_reference(sids.cpu(), vals.cpu(), V)
+        assert _bits_equal(got, want)

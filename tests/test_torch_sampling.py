@@ -1,7 +1,7 @@
 """Path mode's warps and the environment lookup against the JAX package, on
 seeded normals, vectors, streams and directions (numpy, 200,000 each):
-``onb.rotate_to_normal``, ``sampling.cosine_hemisphere`` and
-``texture.environment_map`` on a seeded LDR and a seeded RGBE map.
+``onb.rotate_to_normal`` (and its backward), ``sampling.cosine_hemisphere``
+and ``texture.environment_map`` on a seeded LDR and a seeded RGBE map.
 
 Tolerances:
 * ``rotate_to_normal``: bitwise (the same float32 operations; XLA keeps
@@ -48,6 +48,27 @@ def test_rotate_to_normal_bitwise():
     want = np.asarray(jax_onb.rotate_to_normal(jnp.asarray(nrm), jnp.asarray(v)))
     got = onb.rotate_to_normal(torch.as_tensor(nrm), torch.as_tensor(v)).numpy()
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_rotate_to_normal_gradient_matches_jax():
+    """The backward of ``rotate_to_normal`` on seeded normals and on the
+    axis-aligned normals of the Cornell walls (a zero z component, where
+    ``|n.z|``'s derivative is +1 in JAX and ``vec.abs``'s), against
+    ``jax.vjp``, within 1e-5 of each cotangent's largest magnitude."""
+    import jax
+
+    rs = np.random.RandomState(2)
+    axes = np.float32([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]])
+    nrm = np.concatenate([axes, _unit(rs, 1000)])
+    v = rs.normal(size=nrm.shape).astype(np.float32)
+    ct = rs.normal(size=nrm.shape).astype(np.float32)
+    _, vjp = jax.vjp(jax_onb.rotate_to_normal, jnp.asarray(nrm), jnp.asarray(v))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(ct))]
+    n_t, v_t = (torch.as_tensor(x).requires_grad_() for x in (nrm, v))
+    got = torch.autograd.grad(onb.rotate_to_normal(n_t, v_t), (n_t, v_t), torch.as_tensor(ct))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
+    assert np.abs(want[0][:6, 2]).sum() > 0
 
 
 def test_cosine_hemisphere_matches_jax():

@@ -45,13 +45,16 @@ def treelet_from_arrays(tb, device) -> TreeletBvh:
 def grads_to_arrays(g) -> dict:
     """The float leaves of a scene gradient as NumPy arrays, keyed by their
     path in the JAX package's ``Scene`` pytree (``"camera.eye"``,
-    ``"geom.vertices"``, ...). Reads any object with those attributes whose
-    leaves are tensors or arrays: the port's ``grad_scene`` result or the
-    JAX package's."""
+    ``"geom.vertices"``, ``"spheres.center"``, ``"env.data"``, ...). Reads
+    any object with those attributes whose leaves are tensors or arrays:
+    the port's ``grad_scene`` result or the JAX package's. Parts that are
+    ``None`` (a scene without spheres, planes or environment map in the
+    port, no environment map in the JAX package) give no keys."""
     out = {}
     for key in FLOAT_LEAVES:
         x = leaf(g, key)
-        out[key] = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+        if x is not None:
+            out[key] = x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
     return out
 
 

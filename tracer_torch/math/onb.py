@@ -17,7 +17,7 @@ def rotate_to_normal(normal, v):
     reference's 1e-16 sign epsilon."""
     nx, ny, nz = normal[..., 0], normal[..., 1], normal[..., 2]
     signbit = torch.sign(nz + 1.0e-16)
-    a = -1.0 / (1.0 + torch.abs(nz))
+    a = -1.0 / (1.0 + vec.abs(nz))
     b = nx * ny * a
     t0 = vec.vec3(1.0 + nx * nx * a, b, -signbit * nx)
     t1 = vec.vec3(signbit * b, signbit * (1.0 + ny * ny * a), -ny)

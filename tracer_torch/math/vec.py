@@ -78,6 +78,25 @@ def exp(x):
     return _via_f64(torch.exp, x)
 
 
+class _Abs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0.0, g, -g)
+
+
+def abs(x):
+    """``|x|`` whose derivative at 0 is +1, as JAX's (PyTorch's is 0). The
+    walls of a Cornell box are axis-aligned, so normals with a zero
+    component are common and the choice shows in the gradients."""
+    return _Abs.apply(x)
+
+
 def length(a, keepdims: bool = False):
     return sqrt(dot(a, a, keepdims=keepdims))
 

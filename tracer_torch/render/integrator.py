@@ -11,28 +11,35 @@ The whole W*H pixel wavefront advances together.
   on misses. Scenes whose shaders cannot spawn a continuation ray take
   exactly one bounce (``_single_bounce``).
 * Path mode (``W7 E3``, ``W8 E1``-``E3``, ``W9 E1``/``E2``): per-pixel
-  random jitter and streams (``math.rng``), a multi-bounce ``while`` loop
-  that stops when every lane is done, analytic spheres and planes, the mesh
-  through the packet engine or the brute-force engine, the environment map
-  (or the background colour) on misses, and four shaders: the path-traced
-  Lambertian (one-sample next-event estimation over the emissive triangles
-  with a shadow ray, emission gating, and Russian roulette with
-  cosine-hemisphere continuation), the mirror, the stochastic Fresnel
-  dielectric with optional Beer-Lambert absorption, and the holdout, whose
-  ambient-occlusion probe is a mesh any-hit query.
+  random jitter and streams (``math.rng``), a multi-bounce ``while`` or
+  ``scan`` loop that stops when every lane is done, analytic spheres and
+  planes, the mesh through the packet engine or the brute-force engine,
+  the environment map (or the background colour) on misses, and four
+  shaders: the path-traced Lambertian (one-sample next-event estimation
+  over the emissive triangles with a shadow ray, emission gating, and
+  Russian roulette with cosine-hemisphere continuation), the mirror, the
+  stochastic Fresnel dielectric with optional Beer-Lambert absorption, and
+  the holdout, whose ambient-occlusion probe is a mesh any-hit query.
 
 The path is differentiable as in the JAX package: the traversal runs on
 detached inputs under ``no_grad`` and returns integer ids, and every hit
 attribute is re-derived from the winning id (a row fetch, then the Möller
 test of that one triangle), so gradients reach the camera, the vertices and
-normals (through ``fetch_tri_rows``) and the materials. The material fetch
-is a one-hot product, whose backward is a product (deterministic on the
-card) where a gather's would be a scatter. TF32 is off
-(``tracer_torch/__init__.py``), so that float32 product is an exact
-selection on every device. Where the JAX package fetches rows by a one-hot
-product only to avoid a TPU gather and no gradient of this port flows
-through them (the small-mesh triangle rows, the light table), a gather
-fetches the same rows. Path-mode gradients are not ported.
+normals, the materials, the analytic spheres and planes and the environment
+map. Where the JAX package fetches rows by a one-hot product, so does the
+port, because a gradient flows through them and a product's backward is a
+product (deterministic on the card) where a gather's would be a scatter:
+the material rows, the triangle rows of meshes of at most 128 triangles
+(from a table built from the vertices and normals inside the call) and the
+light table of at most 64 emissive triangles. Larger meshes fetch their
+rows with ``fetch_tri_rows``, whose backward is kernel B2. TF32 is off
+(``tracer_torch/__init__.py``), so every such float32 product is an exact
+selection on every device.
+
+Path mode's ``scan`` loop (the JAX package's differentiable one) is the
+``while`` loop with optional rematerialisation of each bounce
+(``cfg.remat``): autograd records a Python loop, so it too stops once every
+lane is done, and the bounces it skips would add nothing but zeros.
 """
 
 from __future__ import annotations
@@ -115,14 +122,38 @@ def _update(best: Hit, closer, **new_fields) -> Hit:
     return Hit(**out)
 
 
+# Meshes of at most this many triangles fetch their hit rows by a one-hot
+# product (``tracer/render/integrator.py:314-336``); light tables of at
+# most this many rows likewise (``:563-568``).
+ONE_HOT_MAX_TRIANGLES = 128
+ONE_HOT_MAX_LIGHTS = 64
+
+
+def _one_hot(ids, table):
+    """``table[ids]`` as the (N, R) x (R, C) product of the ids' one-hot rows
+    with the table: exact in float32 with TF32 off, and its backward is a
+    product."""
+    oh = (ids[:, None] == torch.arange(table.shape[0], device=ids.device)).to(torch.float32)
+    return oh @ table
+
+
 def _material_rows(mats, mat):
     """(N, 11) material rows [diffuse, emission, specular, shininess, ior]
     as a one-hot (N, M) x (M, 11) product."""
-    M = mats.diffuse.shape[0]
-    oh = (mat[:, None] == torch.arange(M, device=mat.device)).to(torch.float32)
     pack = torch.cat([mats.diffuse, mats.emission, mats.specular,
                       mats.shininess[:, None], mats.ior[:, None]], dim=1)
-    return oh @ pack
+    return _one_hot(mat, pack)
+
+
+def _small_mesh_table(geom):
+    """The (T, 19) rows [v0 v1 v2 n0 n1 n2 mat id] built from the vertices
+    and normals, so that gradients reach them through the one-hot product's
+    backward; the material-id column is detached."""
+    idx = geom.indices.long()
+    cols = [geom.vertices[idx[:, c]] for c in range(3)]
+    cols += [geom.normals[idx[:, c]] for c in range(3)]
+    cols.append(geom.mat_ids.detach().to(torch.float32)[:, None])
+    return torch.cat(cols, dim=1)
 
 
 def _effective_traversal(scene: Scene, cfg: SceneConfig) -> str:
@@ -238,8 +269,11 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
     ok = tri >= 0
     T = geom.indices.shape[0]
     tri_c = tri.long().clamp(0, T - 1)
-    row = fetch_tri_rows(geom.vertices, geom.normals, geom.tri_table,
-                         geom.indices, tri_c)
+    if T <= ONE_HOT_MAX_TRIANGLES:
+        row = _one_hot(tri_c, _small_mesh_table(geom))
+    else:
+        row = fetch_tri_rows(geom.vertices, geom.normals, geom.tri_table,
+                             geom.indices, tri_c)
     v0, v1, v2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     n0, n1, n2 = row[:, 9:12], row[:, 12:15], row[:, 15:18]
     mat = row[:, 18].detach().long()
@@ -335,18 +369,20 @@ def _sample_directional(cfg: SceneConfig, n: int, device):
 
 def _area_light_attrs(scene: Scene, light_slot):
     """(v0, v1, v2, Le, area, normal) of light triangle ``light_slot`` (an
-    index into ``scene.light_indices``), one row per lane. The JAX package
-    selects the rows by a one-hot product over the (L, 12) light table for
-    its backward; no gradient flows here, and a gather fetches the same
-    rows."""
+    index into ``scene.light_indices``), one row per lane, as the JAX
+    package selects them: a one-hot product over the (L, 12) light table
+    for 0 < L <= ``ONE_HOT_MAX_LIGHTS``, a gather otherwise."""
     tri_all = scene.light_indices.long()
     idx_all = scene.geom.indices[tri_all].long()
     verts = scene.geom.vertices
     slot = light_slot.long()
-    v0 = verts[idx_all[:, 0]][slot]
-    v1 = verts[idx_all[:, 1]][slot]
-    v2 = verts[idx_all[:, 2]][slot]
-    l_e = scene.materials.emission[scene.geom.mat_ids[tri_all].long()][slot]
+    v0L, v1L, v2L = (verts[idx_all[:, c]] for c in range(3))
+    leL = scene.materials.emission[scene.geom.mat_ids[tri_all].long()]
+    if 0 < tri_all.shape[0] <= ONE_HOT_MAX_LIGHTS:
+        rows = _one_hot(slot, torch.cat([v0L, v1L, v2L, leL], dim=1))
+        v0, v1, v2, l_e = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], rows[:, 9:12]
+    else:
+        v0, v1, v2, l_e = v0L[slot], v1L[slot], v2L[slot], leL[slot]
     cr = vec.cross(v0 - v1, v0 - v2)
     area = 0.5 * vec.sqrt(vec.dot(cr, cr))
     nrm = vec.normalize(cr, eps=1e-24)
@@ -508,7 +544,7 @@ def _shade_transparent_path(scene, cfg, rays, hit, factor, state):
     nrm = vec.normalize(hit.normal, eps=1e-24)
     cos_raw = vec.dot(w_i, nrm)
     entering = cos_raw < 0.0
-    cos_i = torch.abs(cos_raw)
+    cos_i = vec.abs(cos_raw)
     ior = torch.where(entering, hit.ior, torch.reciprocal(hit.ior))
     out_normal = vec.where(entering, -nrm, nrm)
 
@@ -647,19 +683,20 @@ def _single_bounce(cfg: SceneConfig) -> bool:
 
 
 def bounce_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0=None,
-                seed_t=None):
+                seed_t=None, full_depth: bool = False):
     """The fragment-shader main loop (w8e3.wgsl:264-275) over the wavefront.
     Returns (radiance (N, 3), next seed (N,)).
 
     Single-bounce scenes take one bounce, and the seed is the mesh hit
-    distance (0 where the lane missed). Path mode runs the ``while`` loop
-    from the per-lane random streams ``state0``, and the seed is zeros.
+    distance (0 where the lane missed). Path mode runs the ``while`` or
+    ``scan`` loop (``_path_loop``) from the per-lane random streams
+    ``state0``, and the seed is zeros.
     """
     if not (_single_bounce(cfg) and cfg.max_depth >= 1):
-        if cfg.mode != "path" or cfg.loop != "while":
+        if cfg.mode != "path" or cfg.loop not in ("while", "scan"):
             raise NotImplementedError(
                 f"the {cfg.loop!r} bounce loop in {cfg.mode!r} mode is not ported")
-        radiance = _path_loop(scene, cfg, rays0, state0)
+        radiance = _path_loop(scene, cfg, rays0, state0, full_depth)
         return radiance, torch.zeros_like(radiance[:, 0])
     n = rays0.o.shape[0]
     dev = rays0.o.device
@@ -679,50 +716,97 @@ def bounce_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0=None,
     return _paint_bad(result, bad), seed_next
 
 
-def _path_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0):
-    """The ``while`` loop: up to ``max_depth`` bounces, stopping as soon
-    as every lane is done (one host read of the done mask per bounce)."""
+def _bounce(scene: Scene, cfg: SceneConfig, carry: tuple) -> tuple:
+    """One bounce of the wavefront (the body of the JAX package's loops,
+    ``tracer/render/integrator.py:1201-1253``). ``carry`` is (ray origin,
+    direction, tmin, tmax, result, factor, emit, done, bad, random state),
+    all tensors, the random state an explicit int64 tensor, so a
+    recomputed bounce draws the same numbers."""
+    o, d, tmin, tmax, result, factor, emit, done, bad, state = carry
+    n, dev = o.shape[0], o.device
+    # Done lanes collapse their interval to empty, so the engines'
+    # alive-culling skips them.
+    rays = Rays(o, d, tmin, torch.where(done, tmin, tmax))
+    hit = trace_closest(scene, cfg, rays)
+    bad = bad | (~done & ~hit.converged)
+    miss = ~hit.valid & ~done
+    if cfg.env_light and scene.env is not None:
+        bg = tex.environment_map(scene.env, vec.normalize(rays.d, eps=1e-24)) * factor
+    else:
+        bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev).expand(n, 3)
+    result = result + vec.where(miss, bg, 0.0)
+    live = hit.valid & ~done
+    color, new_rays, cont, factor2, emit2, state2, shade_conv = shade_path(
+        scene, cfg, rays, hit, factor, emit, state)
+    bad = bad | (live & ~shade_conv)
+    if cfg.firefly_clamp > 0.0:
+        color = torch.clamp_max(color, cfg.firefly_clamp)
+    result = result + vec.where(live, color, 0.0)
+    return (
+        vec.where(live, new_rays.o, rays.o),
+        vec.where(live, new_rays.d, rays.d),
+        torch.where(live, new_rays.tmin, rays.tmin),
+        torch.where(live, new_rays.tmax, rays.tmax),
+        result,
+        vec.where(live, factor2, factor),
+        torch.where(live, emit2, emit),
+        done | miss | (live & ~cont),
+        bad,
+        torch.where(live, state2, state),
+    )
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy (``jax.checkpoint_policies.checkpoint_dots``):
+    keep the outputs of matrix products, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: SceneConfig, body):
+    """``body`` under the ``cfg.remat`` policy of the ``scan`` loop
+    (``tracer/render/integrator.py:1279-1293``): ``"none"`` keeps every
+    residual, ``"full"`` recomputes the bounce in the backward, ``"dots"``
+    recomputes all but the matrix products' outputs."""
+    if cfg.loop != "scan" or cfg.remat == "none":
+        return body
+    if cfg.remat not in ("full", "dots"):
+        raise NotImplementedError(f"remat {cfg.remat!r} is not ported")
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(_save_products)
+    return lambda *carry: checkpoint(body, *carry, use_reentrant=False,
+                                     preserve_rng_state=False, **kw)
+
+
+def _path_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0,
+               full_depth: bool = False):
+    """Up to ``max_depth`` bounces, stopping as soon as every lane is done
+    (one host read of the done mask per bounce); ``full_depth`` runs all
+    ``max_depth`` bounces, as the JAX package's ``scan`` does, which gives
+    the same radiance and gradients bit for bit."""
     n = rays0.o.shape[0]
     dev = rays0.o.device
-    rays = rays0
-    result = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    factor = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    emit = torch.ones(n, dtype=torch.bool, device=dev)  # hit_record_init
-    done = torch.zeros(n, dtype=torch.bool, device=dev)
-    bad = torch.zeros(n, dtype=torch.bool, device=dev)  # traversal truncated
-    state = state0
-    depth = 0
-    while depth < cfg.max_depth and bool((~done).any()):
-        # Done lanes collapse their interval to empty, so the engines'
-        # alive-culling skips them.
-        rays = Rays(rays.o, rays.d, rays.tmin, torch.where(done, rays.tmin, rays.tmax))
-        hit = trace_closest(scene, cfg, rays)
-        bad = bad | (~done & ~hit.converged)
-        miss = ~hit.valid & ~done
-        if cfg.env_light and scene.env is not None:
-            bg = tex.environment_map(scene.env, vec.normalize(rays.d, eps=1e-24)) * factor
-        else:
-            bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev).expand(n, 3)
-        result = result + vec.where(miss, bg, 0.0)
-        live = hit.valid & ~done
-        color, new_rays, cont, factor2, emit2, state2, shade_conv = shade_path(
-            scene, cfg, rays, hit, factor, emit, state)
-        bad = bad | (live & ~shade_conv)
-        if cfg.firefly_clamp > 0.0:
-            color = torch.clamp_max(color, cfg.firefly_clamp)
-        result = result + vec.where(live, color, 0.0)
-        rays = Rays(
-            o=vec.where(live, new_rays.o, rays.o),
-            d=vec.where(live, new_rays.d, rays.d),
-            tmin=torch.where(live, new_rays.tmin, rays.tmin),
-            tmax=torch.where(live, new_rays.tmax, rays.tmax),
-        )
-        factor = vec.where(live, factor2, factor)
-        emit = torch.where(live, emit2, emit)
-        state = torch.where(live, state2, state)
-        done = done | miss | (live & ~cont)
-        depth += 1
-    return _paint_bad(result, bad)
+    body = _remat(cfg, lambda *carry: _bounce(scene, cfg, carry))
+    carry = (
+        rays0.o, rays0.d, rays0.tmin, rays0.tmax,
+        torch.zeros((n, 3), dtype=torch.float32, device=dev),  # result
+        torch.ones((n, 3), dtype=torch.float32, device=dev),  # factor
+        torch.ones(n, dtype=torch.bool, device=dev),  # emit (hit_record_init)
+        torch.zeros(n, dtype=torch.bool, device=dev),  # done
+        torch.zeros(n, dtype=torch.bool, device=dev),  # bad: traversal truncated
+        state0,
+    )
+    for _ in range(cfg.max_depth):
+        if not full_depth and not bool((~carry[7]).any()):
+            break
+        carry = body(*carry)
+    return _paint_bad(carry[4], carry[8])
 
 
 def _paint_bad(result, bad):
@@ -768,11 +852,13 @@ def _path_primary(scene: Scene, cfg: SceneConfig):
     ), state
 
 
-def render_sample(scene: Scene, cfg: SceneConfig):
-    """One sample pass over the full W x H wavefront (no temporal seed)."""
+def render_sample(scene: Scene, cfg: SceneConfig, full_depth: bool = False):
+    """One sample pass over the full W x H wavefront (no temporal seed).
+    ``full_depth``: path mode runs all ``max_depth`` bounces (see
+    ``_path_loop``)."""
     if cfg.mode == "path":
         rays, state = _path_primary(scene, cfg)
-        return bounce_loop(scene, cfg, rays, state)[0]
+        return bounce_loop(scene, cfg, rays, state, full_depth=full_depth)[0]
     return bounce_loop(scene, cfg, primary_rays(scene, cfg))[0]
 
 

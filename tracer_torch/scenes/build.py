@@ -70,8 +70,9 @@ def unsupported(desc: SceneDescriptor, cfg: SceneConfig) -> list[str]:
     analytic spheres and planes, next-event estimation over the emissive
     triangles (``area_mc``) or no lights, and the Lambertian, mirror,
     transparent and holdout shaders (``W7 E3``, ``W8 E1``-``E3``,
-    ``W9 E1``/``W9 E2``). The mesh may take the treelet engines or the
-    brute-force engine."""
+    ``W9 E1``/``W9 E2``), under the ``while`` or the differentiable ``scan``
+    bounce loop with any ``remat`` policy. The mesh may take the treelet
+    engines or the brute-force engine."""
     why = []
     if desc.model is None:
         why.append("no triangle mesh")
@@ -101,8 +102,10 @@ def unsupported(desc: SceneDescriptor, cfg: SceneConfig) -> list[str]:
     elif cfg.mode == "path":
         if cfg.lights not in (("none",), ("area_mc",)):
             why.append(f"lights {cfg.lights} (next-event estimation)")
-        if cfg.loop != "while":
+        if cfg.loop not in ("while", "scan"):
             why.append(f"bounce loop {cfg.loop!r}")
+        if cfg.remat not in ("none", "full", "dots"):
+            why.append(f"remat {cfg.remat!r}")
         if set(cfg.possible_shaders) - PATH_SHADERS:
             why.append(f"shaders {cfg.possible_shaders}")
         if cfg.dielectric not in ("simple", "fresnel", "absorb"):
