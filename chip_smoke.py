@@ -109,7 +109,27 @@ Phases (each raises on failure, so the script exits non-zero):
               reads), no twin ran, every leaf is finite and two steps agree
               bit for bit, and holds B2 against its twin on bounce 2's
               sorted corner stream of the path lanes (with its real
-              cotangents and with seeded ones on the same ids).
+              cotangents and with seeded ones on the same ids);
+10. direct  — direct mode. ``W6 E1 Dragon`` (the ``mix_ka`` ambient) on
+              phase 4's built dragon (the descriptors differ in their
+              configuration only, which is checked first), 1 warm-up and 10
+              timed frames (ms/frame by CUDA events and the host clock), one
+              instrumented and one profiled: B1 on every frame, never its
+              twin, and the frame's hit ids equal phase 4's ``Project:
+              Dragon`` ids bit for bit. The shadowed dragon
+              (``with_standin_mesh``: W5 E3's ``directional`` light with
+              shadow rays, the ``mix`` ambient) the same way: B1 also in
+              any-hit mode on every frame, and the shadow rays' occlusion
+              equal to the twin's (and B1 bitwise equal to its twin on their
+              emissions). ``W6 E3 Cornell Box`` at 512x512 (mirror, glossy,
+              the area lights; brute force) 1 + 10 frames with spies
+              (bounces, shadow rays); ``W5 E4``/``E5``, ``W6 E2``, ``W7
+              E1``/``E2`` and W1 E1-W3 E4 at 512x512, 1 + 3 frames each.
+              Checks on every run: every lane converged, the accumulator is
+              finite, no hand kernel or twin ran where none should; and
+              32x32 frames meet the JAX package's numbers (``DIRECT_REF``).
+
+B1's ``launches`` count the timed frames and steps of phases 4, 5 and 10.
 
 Prints one JSON object of per-kernel results on the line before the last,
 and ``{"ok": true, "device": {...}}`` as the last line. Imports nothing of
@@ -184,6 +204,24 @@ PATH_RTOL = 1e-4
 CORNELL_REF = dict(sum=690.4276269679613, sumsq=6906.90693658513, max=39.46552276611328)
 CORNELL_RTOL = 1e-4
 
+# The same numbers for direct rows at 32x32 (registry configs, the Cornell
+# box of ``with_fixture_model``; W3 E3's grass.jpg is missing, so its plane
+# keeps its base colour): the point light without and with shadow rays and
+# the mirror (W1 E6, W2 E2), the transmit (W2 E5), 4x4 stratified jitter
+# (W3 E3), and the area lights with the mirror and the glossy sphere (W6
+# E3). ``tests/test_torch_direct.py`` recomputes them from JAX. The port's
+# CPU render meets them at 2.8e-7 relative at worst (W6 E3's sum), inside
+# DIRECT_RTOL with a margin of 36x.
+DIRECT_REF = {
+    "W1 E6": dict(sum=581.2844606656581, sumsq=376.2305237873462, max=1.8786534070968628),
+    "W2 E2": dict(sum=515.3050512839109, sumsq=264.28176614903657, max=1.2816846370697021),
+    "W2 E5": dict(sum=512.0128997592255, sumsq=264.4717487768444, max=1.2816846370697021),
+    "W3 E3": dict(sum=481.7910443585133, sumsq=237.0962015433538, max=1.2090566158294678),
+    "W6 E3 Cornell Box": dict(sum=593.5132094046579, sumsq=8756.00612299916,
+                              max=27.600000381469727),
+}
+DIRECT_RTOL = 1e-5
+
 # The JAX package's path-mode gradient of W8 E3 Absorption at 16x16
 # (tracer.diff.grad.grad_scene with loop="scan", registry depth 10, target
 # zeros, one sample, on the CPU): per leaf (sum, sum of |x|, sum of x^2) in
@@ -219,6 +257,27 @@ def seeded_env(rgbe: bool, seed: int = 0, shape=(32, 64)) -> np.ndarray:
     if rgbe:
         env[..., 3] = (rs.randint(120, 136, shape) / 255.0).astype(np.float32)
     return env
+
+
+def seeded_texture(seed: int = 0, shape=(16, 16)) -> np.ndarray:
+    """An (H, W, 4) float32 plane texture of random 8-bit texels from numpy
+    with a seed, standing in for the W3 rows' missing ``grass.jpg``."""
+    return seeded_env(False, seed, shape)
+
+
+def with_standin_mesh(desc, model: str = "dragon.obj"):
+    """``desc`` (a descriptor of either package's registry) with its model
+    pointed at the registry path of a mesh that has a procedural stand-in
+    and the camera on it (``DRAGON_CAM``, the bunny's, at the row's
+    aspect). On ``W5 E3 Teapot`` (the ``directional`` light with shadow
+    rays, the ``mix`` ambient) this is the shadowed direct frame on a large
+    mesh: both packages substitute the stand-in where the teapot is
+    missing. A test configuration, not a registry row."""
+    from tracer_torch.scenes.registry import DRAGON_CAM, REF_RES
+
+    return dataclasses.replace(
+        desc, name=f"{desc.name} on {model}", model=f"{REF_RES}/models/{model}",
+        camera=dict(DRAGON_CAM, aspect=desc.camera["aspect"]))
 
 
 def path_stats(accum) -> dict:
@@ -926,6 +985,207 @@ def cornell_phase(dev, card: str, kernels) -> None:
     for name, size in (("W8 E1 Cornell Box Balls", 512), ("W8 E2 Cornell Box Balls", 512),
                        ("W7 E3 Cornell Box", 128)):
         run(name, size, 3)
+
+
+def same_but_config(a, b) -> bool:
+    """Whether descriptors ``a`` and ``b`` differ in their name and
+    configuration only (the same model, camera, primitives and assets)."""
+    keys = ("model", "model_scale", "camera", "spheres", "planes", "tris", "hdri", "hdri_rgbe",
+            "texture", "selection1", "selection2", "bvh_leaf")
+    return all(getattr(a, k) == getattr(b, k) for k in keys)
+
+
+def timed_frames(scene, cfg, state, frames: int) -> tuple[float, float]:
+    """``frames`` progressive steps after a synchronize: ms per frame by CUDA
+    events and by the host clock."""
+    from tracer_torch.render import progressive
+
+    ms, host_ms, _ = timed_steps(lambda: progressive.step(scene, cfg, state), frames)
+    return ms, host_ms
+
+
+def direct_phase(dev, card: str, kernels, dragon) -> dict:
+    """Phase 10: direct mode (see the module docstring). ``dragon`` is phase
+    4's (scene, cfg, descriptor, primary rays, hit ids). Raises on any
+    failed check; returns B1's launches in the phase and its largest error
+    against the twin on the shadow rays, for the ``kernels`` line."""
+    from tracer_torch.accel import flat
+    from tracer_torch.kernels import super_hits
+    from tracer_torch.render import integrator, progressive
+    from tracer_torch.scenes.build import build_scene, scene_config
+    from tracer_torch.scenes.registry import get_scene
+
+    dscene, dcfg, ddesc, rays, ids_dragon = dragon
+    frame = (dcfg.width, dcfg.height)
+
+    def counts():
+        return [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in kernels]
+
+    def reset():
+        for m in kernels:
+            m.KERNEL_LAUNCHES = m.REFERENCE_CALLS = 0
+
+    def checked(name, scene, cfg, state, frames, rec):
+        acc = state.accum
+        if rec["bad"]:
+            raise AssertionError(f"{name}: {rec['bad']} lanes did not converge")
+        if acc.shape != (cfg.width * cfg.height, 3) or not bool(torch.isfinite(acc).all()):
+            raise AssertionError(f"{name}: the accumulator is not finite")
+        if state.iteration != frames + 2:
+            raise AssertionError(f"{name}: iteration {state.iteration} after {frames + 2} steps")
+
+    def on_dragon(row_desc, frames):
+        """The dragon rows: phase 4's scene under this row's configuration;
+        B1 on every frame, never its twin."""
+        if not same_but_config(row_desc, ddesc):
+            raise AssertionError(f"{row_desc.name} is not phase 4's dragon under another config")
+        cfg = scene_config(row_desc)
+        if (cfg.width, cfg.height) != frame or integrator._effective_traversal(dscene, cfg) != "bvh":
+            raise AssertionError(f"{row_desc.name} is not the 800x450 flat-engine frame")
+        state = progressive.init_state(cfg, dev)
+        reset()
+        per_frame = []
+        progressive.step(dscene, cfg, state)
+        per_frame.append(super_hits.KERNEL_LAUNCHES)
+        ms, host_ms = timed_frames(dscene, cfg, state, frames)
+        launches, twin = super_hits.KERNEL_LAUNCHES, super_hits.REFERENCE_CALLS
+        if launches < (frames + 1) * per_frame[0] or twin or counts()[1:] != [(0, 0), (0, 0)]:
+            raise AssertionError(f"{row_desc.name} did not run B1 alone on every frame: {counts()}")
+        rec = cornell_instrumented(dscene, cfg, state)
+        checked(row_desc.name, dscene, cfg, state, frames, rec)
+        prof = profile_step(lambda: progressive.step(dscene, cfg, state), {"b1_ms": "super_hits"})
+        log(f"[direct] {row_desc.name} {cfg.width}x{cfg.height} (phase 4's dragon), lights "
+            f"{cfg.lights}, shadows {cfg.shadows}, ambient {cfg.ambient!r}; {frames} frames after "
+            f"1: {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms/frame (host clock); B1 "
+            f"launches {launches} over {frames + 1} frames ({per_frame[0]} in the first), twin "
+            f"calls {twin}; instrumented frame: {rec['shadow']} shadow rays, truncated lanes "
+            f"{rec['bad']}; " + (f"profiled frame: {prof['kernels']} kernels, device busy "
+                                 f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms trace "
+                                 f"(idle {prof['idle']:.1%}), B1 {prof['b1_ms']:.4f} ms"
+                                 if prof else "the profiler recorded no device time")
+            + f"; {card}")
+        return cfg, state, launches
+
+    # 10a. W6 E1 Dragon: the mix_ka ambient on phase 4's dragon.
+    w6 = get_scene("W6 E1 Dragon")
+    cfg6, state6, b1_w6 = on_dragon(w6, 10)
+    caught = []
+    closest = flat.closest_hit
+    flat.closest_hit = lambda *a, **kw: caught.append(closest(*a, **kw)) or caught[-1]
+    try:
+        progressive.step(dscene, cfg6, state6)
+    finally:
+        flat.closest_hit = closest
+    (_, ids6, conv6), = caught
+    if not torch.equal(ids6, ids_dragon) or not bool(conv6.all()):
+        raise AssertionError(f"W6 E1 Dragon's hit ids differ from Project: Dragon's on "
+                             f"{int((ids6 != ids_dragon).sum())} lanes")
+    log("[direct] W6 E1 Dragon's hit ids equal Project: Dragon's bit for bit; every lane "
+        "converged")
+
+    # 10b. The shadowed frame on the dragon: W5 E3 Teapot's configuration
+    # (the directional light with shadow rays) on the stand-in; B1 any-hit.
+    sdesc = with_standin_mesh(get_scene("W5 E3 Teapot"), "dragon.obj")
+    any_hit = []
+    hits2 = super_hits.hits2
+    super_hits.hits2 = lambda *a: any_hit.append(bool(a[-1])) or hits2(*a)
+    try:
+        scfg, sstate, b1_shadow = on_dragon(sdesc, 10)
+    finally:
+        super_hits.hits2 = hits2
+    if sum(any_hit) < 11:
+        raise AssertionError("the shadowed dragon frames did not each run B1 in any-hit mode")
+    # One more frame with spies: its shadow rays, and each B1 launch's mode,
+    # CUDA-event span and live lanes (the frame is not a timed one).
+    shadow, spans = [], []
+    occluded = flat.any_hit
+
+    def timed_hits2(*a):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        out = hits2(*a)
+        ev[1].record()
+        live = (a[7] < a[8]) & ~(bool(a[-1]) & (a[9] > 0.0))
+        spans.append((bool(a[-1]), ev, int(live.sum())))
+        return out
+
+    flat.any_hit = lambda r, *a, **kw: shadow.append(r) or occluded(r, *a, **kw)
+    super_hits.hits2 = timed_hits2
+    try:
+        progressive.step(dscene, scfg, sstate)
+    finally:
+        flat.any_hit, super_hits.hits2 = occluded, hits2
+    torch.cuda.synchronize()
+    (srays,), n_any = shadow, sum(any_hit)
+    any_spans = [(e[0].elapsed_time(e[1]), n) for m, e, n in spans if m]
+    log(f"[direct] shadowed dragon frame's B1 launches: {len(spans) - len(any_spans)} closest "
+        f"({sum(e[0].elapsed_time(e[1]) for m, e, _ in spans if not m):.3f} ms); "
+        f"{len(any_spans)} any-hit: the culled list {any_spans[0][0]:.3f} ms over "
+        f"{any_spans[0][1]} live lanes, then {len(any_spans) - 1} sweep rounds "
+        f"{sum(t for t, _ in any_spans[1:]):.3f} ms over live lanes "
+        f"{[n for _, n in any_spans[1:]]} (CUDA events); {card}")
+    blocked_k, conv_k = flat.any_hit(srays, dscene.tb, frame, with_conv=True)
+    blocked_r = flat.any_hit(srays, dscene.tb, frame, hits=super_hits.hits2_reference)
+    if not torch.equal(blocked_k, blocked_r) or not bool(conv_k.all()):
+        raise AssertionError(f"the shadow rays' occlusion differs from the twin's on "
+                             f"{int((blocked_k != blocked_r).sum())} lanes")
+    em = flat.emissions(srays, dscene.tb, frame, any_hit=True)
+    args = frame_args(em, dscene.tb)
+    err = compare("dragon shadow rays any-hit", super_hits.hits2(*args, True),
+                  super_hits.hits2_reference(*args, True))
+    log(f"[direct] shadowed dragon: {n_any} of {len(any_hit)} B1 launches over 11 frames in "
+        f"any-hit mode; "
+        f"{int(blocked_k.sum())} of {blocked_k.numel()} shadow rays blocked, the mask equal to "
+        f"the twin's; {em.n_super} super-tiles x {em.ids.shape[1]} slots, mean "
+        f"{float(em.en.float().mean()):.1f} emissions, {int(em.overflow.sum())} super-tiles "
+        "overflowing (swept in id order)")
+    # B1's any-hit launch on the shadow rays' culled emissions, alone.
+    any_ms = cuda_events_ms(lambda: super_hits.hits2(*args, True), 5)
+    st = {}
+    super_hits.hits2_reference(*args, True, stats=st)
+    b_ms, b_by = b1_bound(args, st["live_tests"])
+    log(f"[time] hits2 any-hit, the shadowed dragon's culled emissions: kernel {any_ms:.4f} ms, "
+        f"bound over live tests {b_ms:.4f} ms ({b_by}; {st['live_tests']} tests); the twin's "
+        f"counts: {st['staged']} staged slots, {st['rounds']} rounds, {st['visits']} visits, "
+        f"per super-tile visits max {int(st['super_visits'].max())}; {card}")
+
+    # 10c. W6 E3 (area lights, mirror, glossy; brute force) at 512x512,
+    # 1 + 10 frames; the other Cornell rows and worksheets 1-3, 1 + 3.
+    rows = [("W6 E3 Cornell Box", 10)] + [(r, 3) for r in (
+        "W5 E4 Cornell Box", "W5 E5 Cornell Box", "W6 E2 Cornell Box", "W7 E1 Cornell Box",
+        "W7 E2 Cornell Box", "W1 E1", "W1 E2", "W1 E3", "W1 E4", "W1 E5", "W1 E6", "W2 E1",
+        "W2 E2", "W2 E3", "W2 E4", "W2 E5", "W3 E1", "W3 E2", "W3 E3", "W3 E4")]
+    for name, frames in rows:
+        desc = with_fixture_model(get_scene(name))
+        scene, cfg = build_scene(desc, dev)
+        if (cfg.width, cfg.height) != (512, 512) or cfg.mode != "direct" or scene.tb is not None:
+            raise AssertionError(f"{name} is not the 512x512 direct frame without treelets")
+        state = progressive.init_state(cfg, dev)
+        reset()
+        progressive.step(scene, cfg, state)
+        ms, host_ms = timed_frames(scene, cfg, state, frames)
+        rec = cornell_instrumented(scene, cfg, state)
+        checked(name, scene, cfg, state, frames, rec)
+        if counts() != [(0, 0)] * len(kernels):
+            raise AssertionError(f"{name} ran a hand kernel or a twin: {counts()}")
+        log(f"[direct] {name} {cfg.width}x{cfg.height}, shaders {cfg.possible_shaders}, lights "
+            f"{cfg.lights}, subdivs {cfg.subdivs}; {frames} frames after 1: {ms:.3f} ms/frame "
+            f"(CUDA events), {host_ms:.3f} ms/frame (host clock); instrumented frame: "
+            f"{rec['bounces']} bounces, {rec['shadow']} shadow rays, {rec['brute_calls']} "
+            f"brute-force calls, truncated lanes {rec['bad']}; {card}")
+
+    # 10d. 32x32 frames against the JAX package's numbers.
+    for name, ref in DIRECT_REF.items():
+        desc = with_fixture_model(get_scene(name))
+        desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=32, height=32))
+        scene, cfg = build_scene(desc, dev)
+        stats = path_stats(progressive.render_progressive(scene, cfg, 2).accum.cpu().numpy())
+        log(f"[direct 32x32] {name}: {stats} (JAX: {ref})")
+        bad = path_errors(stats, DIRECT_RTOL, ref)
+        if bad:
+            raise AssertionError(f"the 32x32 {name} frame disagrees with the JAX package: "
+                                 + "; ".join(bad))
+    return dict(b1_launches=b1_w6 + b1_shadow, b1_err=err)
 
 
 def timed_steps(step, n: int) -> tuple[float, float, int]:
@@ -1660,12 +1920,17 @@ def main() -> int:
     pg = pgrad_phase(dev, card, kernels)
     b2_err = max(b2_err, pg["b2_err"])
 
+    # 10. Direct mode: the dragon rows through B1 (closest and any-hit), the
+    # Cornell rows and worksheets 1-3 (no hand kernel).
+    dr = direct_phase(dev, card, kernels, (scene, cfg, desc, rays, ids_k))
+    max_err = max(max_err, dr["b1_err"])
+
     log(json.dumps({"kernels": [{
         "name": "super_hits.hits2",
         "route": "cuda",
         "source": "tracer_torch/csrc/super_hits.cu",
         "replaces": "tracer/kernels/super_hits.py:262",
-        "launches": launches + g_launches["super_hits"],
+        "launches": launches + g_launches["super_hits"] + dr["b1_launches"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

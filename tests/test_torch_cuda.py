@@ -28,6 +28,10 @@ Tolerances:
   engine's per-pair Möller test and the shaders use only exactly rounded
   float32 operations and float64 transcendentals, and ``argmin`` keeps the
   first of equal distances on both devices.
+* The direct-mode frames (analytic primitives, textured planes under
+  stratified jitter, the Cornell box's area lights, the bunny through B1 in
+  both modes): bit for bit, for the same reasons; Phong's power is taken
+  in float64 and rounded.
 * The gradient (the dragon's single bounce, and the path gradients of W8
   E3 at 64x64 and W9 E1 at 32x32): two card runs bit for bit. Card against
   CPU at rtol 1e-4 with an atol of 1e-5 of each leaf's largest magnitude,
@@ -44,8 +48,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (brute_case, lane_tiles, narrow_quarters, scatter_streams, super_lanes,
-                        synthetic, synthetic_tiles, with_fixture_model, with_seeded_env)
+from chip_smoke import (brute_case, lane_tiles, narrow_quarters, scatter_streams, seeded_texture,
+                        super_lanes, synthetic, synthetic_tiles, with_fixture_model,
+                        with_seeded_env, with_standin_mesh)
 from tracer_torch import convert
 from tracer_torch.accel import flat, lbvh, treelet
 from tracer_torch.diff import grad as G
@@ -53,6 +58,7 @@ from tracer_torch.geometry.procedural import bumpy_blob
 from tracer_torch.kernels import intersect, scatter_vn, super_hits, treelet_hits
 from tracer_torch.kernels.intersect import Rays, make_rays
 from tracer_torch.render import progressive
+from tracer_torch.render import texture as tex
 from tracer_torch.scenes.build import build_scene
 from tracer_torch.scenes.registry import get_scene
 
@@ -469,3 +475,55 @@ def test_w9e1_path_gradient_runs_b3_and_b2(cuda):
         got = scatter_vn.segment_place(sids, vals, V)
         want = scatter_vn.segment_place_reference(sids.cpu(), vals.cpu(), V)
         assert _bits_equal(got, want)
+
+
+# (row, width, height, selections, seeded texture, stand-in mesh)
+DIRECT_CARD_CASES = {
+    "W1 E4": ("W1 E4", 32, 32, None, False, None),
+    "W2 E5 glossy+phong": ("W2 E5", 32, 32, (4, 1), False, None),
+    "W3 E3 texture": ("W3 E3", 32, 32, None, True, None),
+    "W6 E3 Cornell Box": ("W6 E3 Cornell Box", 64, 64, None, False, None),
+    "W6 E1 Bunny": ("W6 E1 Bunny", 64, 48, None, False, None),
+    "W5 E3 shadowed bunny": ("W5 E3 Teapot", 64, 48, None, False, "bunny.obj"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", list(DIRECT_CARD_CASES))
+def test_direct_frames_on_card_match_cpu(cuda, key):
+    """Two direct-mode progressive steps give the same accumulator on the
+    card as on the CPU; the bunny rows ran B1 on the card (the shadowed one
+    in any-hit mode too) and never its twin, the others no hand kernel."""
+    row, w, h, sel, textured, standin = DIRECT_CARD_CASES[key]
+    desc = get_scene(row)
+    if standin is not None:
+        desc = with_standin_mesh(desc, standin)
+    elif "Cornell" in row:
+        desc = with_fixture_model(desc)
+    if sel is not None:
+        desc = dataclasses.replace(desc, selection1=sel[0], selection2=sel[1])
+    desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=w, height=h))
+    mods = (super_hits, scatter_vn, treelet_hits)
+    accs, modes = {}, []
+    hits2 = super_hits.hits2
+    super_hits.hits2 = lambda *a: modes.append(bool(a[-1])) or hits2(*a)
+    try:
+        for dev in ("cpu", cuda):
+            scene, cfg = build_scene(desc, dev)
+            if textured:
+                scene = dataclasses.replace(
+                    scene, texture=tex.TextureBuf(torch.as_tensor(seeded_texture(), device=dev)),
+                    uniforms=dataclasses.replace(scene.uniforms, use_texture=tex.TEX_DEFAULT))
+            counts = [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in mods]
+            accs[str(dev)] = progressive.render_progressive(scene, cfg, 2).accum
+            after = [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in mods]
+    finally:
+        super_hits.hits2 = hits2
+    assert _bits_equal(accs["cpu"], accs[str(cuda)])
+    assert bool(torch.isfinite(accs["cpu"]).all()) and float(accs["cpu"].abs().max()) > 0
+    if scene.tb is None:
+        assert after == counts
+    else:
+        assert after[0][0] >= counts[0][0] + 2 and after[0][1] == counts[0][1]
+        assert after[1:] == counts[1:]
+        assert any(modes) == cfg.shadows

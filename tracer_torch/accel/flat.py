@@ -386,9 +386,9 @@ def closest_hit(rays: Rays, tb: TreeletBvh, frame=None, with_conv=False,
     return t, pid
 
 
-def any_hit(rays: Rays, tb: TreeletBvh, frame=None, with_conv=False):
-    """Occlusion query over [tmin, tmax]."""
-    _, bp, conv = _run(rays, tb, frame, any_hit=True)
+def any_hit(rays: Rays, tb: TreeletBvh, frame=None, with_conv=False, hits=None):
+    """Occlusion query over [tmin, tmax]; ``hits`` as in ``closest_hit``."""
+    _, bp, conv = _run(rays, tb, frame, any_hit=True, hits=hits)
     if with_conv:
         return bp > 0.0, conv
     return bp > 0.0

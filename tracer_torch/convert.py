@@ -3,9 +3,10 @@
 ``scene_from_arrays`` reads any object with the attribute names of the JAX
 package's ``Scene`` whose leaves are NumPy arrays (for example
 ``jax.tree.map(np.asarray, scene)``) and returns the port's ``Scene`` on
-``device``, analytic spheres and planes and the environment map included
-(and no treelet BVH for a mesh on the brute-force engine), so both
-implementations can be run on the very same buffers.
+``device``, analytic spheres, planes and triangles, the environment map,
+the plane texture and the stratified jitters included (no mesh for a
+meshless scene, and no treelet BVH for a mesh on the brute-force engine),
+so both implementations can be run on the very same buffers.
 ``grads_to_arrays`` reads a scene gradient of either package the same way,
 so the two can be compared leaf by leaf. Both only read attributes and
 import nothing of JAX.
@@ -18,7 +19,8 @@ import torch
 
 from tracer_torch.accel.treelet import TreeletBvh
 from tracer_torch.diff.grad import FLOAT_LEAVES, leaf
-from tracer_torch.geometry.device import GeometryBuffers, MaterialTable, Planes
+from tracer_torch.geometry.device import (AnalyticTriangles, GeometryBuffers, MaterialTable,
+                                         Planes)
 from tracer_torch.render.camera import Camera
 from tracer_torch.render.scene import Scene, Spheres, Uniforms
 from tracer_torch.render.texture import TextureBuf
@@ -58,15 +60,15 @@ def grads_to_arrays(g) -> dict:
     return out
 
 
+def _texture(t, device):
+    return None if t is None else TextureBuf(data=_t(t.data, device), kind=int(t.kind))
+
+
 def scene_from_arrays(obj, device) -> Scene:
-    if np.asarray(obj.tris.shader).shape[0]:
-        raise NotImplementedError("analytic triangles are not ported")
-    if obj.geom is None:
-        raise NotImplementedError("only mesh scenes are ported")
-    cam, uni, g, m, p, sp = (obj.camera, obj.uniforms, obj.geom, obj.materials, obj.planes,
-                             obj.spheres)
+    cam, uni, g, m, p, sp, tr = (obj.camera, obj.uniforms, obj.geom, obj.materials, obj.planes,
+                                 obj.spheres, obj.tris)
     i32 = torch.int32
-    spheres = planes = None
+    spheres = planes = tris = None
     if np.asarray(sp.radius).shape[0]:
         spheres = Spheres(
             center=_t(sp.center, device), radius=_t(sp.radius, device),
@@ -80,8 +82,22 @@ def scene_from_arrays(obj, device) -> Scene:
             shader=_t(p.shader, device, i32), base_color=_t(p.base_color, device),
             textured=_t(p.textured, device, i32),
         )
-    env = None if obj.env is None else TextureBuf(
-        data=_t(obj.env.data, device), kind=int(obj.env.kind))
+    if np.asarray(tr.shader).shape[0]:
+        tris = AnalyticTriangles(verts=_t(tr.verts, device), shader=_t(tr.shader, device, i32),
+                                 base_color=_t(tr.base_color, device))
+    geom = materials = light_indices = None
+    if g is not None:
+        geom = GeometryBuffers(
+            vertices=_t(g.vertices, device), normals=_t(g.normals, device),
+            indices=_t(g.indices, device, i32), mat_ids=_t(g.mat_ids, device, i32),
+            tri_table=_t(g.tri_table, device),
+        )
+        materials = MaterialTable(
+            diffuse=_t(m.diffuse, device), emission=_t(m.emission, device),
+            specular=_t(m.specular, device), illum=_t(m.illum, device, i32),
+            shininess=_t(m.shininess, device), ior=_t(m.ior, device),
+        )
+        light_indices = _t(obj.light_indices, device, i32)
     return Scene(
         camera=Camera(
             eye=_t(cam.eye, device), target=_t(cam.target, device),
@@ -95,19 +111,14 @@ def scene_from_arrays(obj, device) -> Scene:
             uv_scale=tuple(float(x) for x in np.asarray(uni.uv_scale)),
             iteration=int(uni.iteration),
         ),
-        geom=GeometryBuffers(
-            vertices=_t(g.vertices, device), normals=_t(g.normals, device),
-            indices=_t(g.indices, device, i32), mat_ids=_t(g.mat_ids, device, i32),
-            tri_table=_t(g.tri_table, device),
-        ),
-        materials=MaterialTable(
-            diffuse=_t(m.diffuse, device), emission=_t(m.emission, device),
-            specular=_t(m.specular, device), illum=_t(m.illum, device, i32),
-            shininess=_t(m.shininess, device), ior=_t(m.ior, device),
-        ),
-        light_indices=_t(obj.light_indices, device, i32),
+        geom=geom,
+        materials=materials,
+        light_indices=light_indices,
         tb=None if obj.tb is None else treelet_from_arrays(obj.tb, device),
         planes=planes,
-        env=env,
+        env=_texture(obj.env, device),
         spheres=spheres,
+        tris=tris,
+        texture=_texture(obj.texture, device),
+        jitters=None if obj.jitters is None else _t(obj.jitters, device),
     )

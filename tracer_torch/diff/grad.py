@@ -19,7 +19,7 @@ from dataclasses import replace
 
 import torch
 
-from tracer_torch.geometry.device import GeometryBuffers, MaterialTable, Planes
+from tracer_torch.geometry.device import SHADER_LAMBERTIAN, GeometryBuffers, MaterialTable, Planes
 from tracer_torch.render import integrator
 from tracer_torch.render.camera import Camera
 from tracer_torch.render.scene import Scene, SceneConfig, Spheres
@@ -68,6 +68,40 @@ def with_leaves(scene: Scene, leaves: dict) -> Scene:
     """``scene`` with the leaves named in ``leaves`` replaced."""
     return replace(scene, **{part: replace(getattr(scene, part), **kw)
                              for part, kw in _parts(leaves).items()})
+
+
+def not_differentiated(scene: Scene, cfg: SceneConfig) -> list[str]:
+    """What of this scene and configuration the gradients do not cover yet
+    ([] when they do): direct mode only as ``project.wgsl`` configures it
+    (the ``directional_n`` light, no shadow rays, the ``plain_scaled``
+    ambient term, the Lambertian, one sample per pixel), and in either mode
+    a triangle mesh, no analytic triangles and no plane texture."""
+    why = []
+    if cfg.mode == "direct":
+        if any(k != "directional_n" for k in cfg.lights):
+            why.append(f"lights {cfg.lights}")
+        if cfg.shadows:
+            why.append("shadow rays")
+        if cfg.ambient != "plain_scaled":
+            why.append(f"ambient {cfg.ambient!r}")
+        if set(cfg.possible_shaders) - {SHADER_LAMBERTIAN}:
+            why.append(f"shaders {cfg.possible_shaders} in direct mode")
+        if cfg.subdivs > 1 or scene.jitters is not None:
+            why.append(f"subdivs {cfg.subdivs}")
+    if scene.geom is None:
+        why.append("no triangle mesh")
+    if scene.tris is not None:
+        why.append("analytic triangles")
+    if scene.texture is not None or cfg.plane_texture:
+        why.append("plane textures")
+    return why
+
+
+def _check_differentiated(scene: Scene, cfg: SceneConfig) -> None:
+    why = not_differentiated(scene, cfg)
+    if why:
+        raise NotImplementedError(
+            f"gradients of {cfg.name or 'this scene'!r} are not ported: " + "; ".join(why))
 
 
 def _diffable(cfg: SceneConfig) -> SceneConfig:
@@ -130,8 +164,10 @@ def grad_scene(scene: Scene, cfg: SceneConfig, target, num_samples: int = 1) -> 
     ior and extinction, the planes' position, normal, tangent, binormal and
     base colour, and the environment map's texels. Leaves the loss does not
     reach get zeros; integer leaves, the uniforms and the accel structure
-    are ``None``.
+    are ``None``. Raises ``NotImplementedError`` for what
+    ``not_differentiated`` lists.
     """
+    _check_differentiated(scene, cfg)
     return scene_grads(scene, lambda s: l2_loss(s, cfg, target, num_samples))
 
 
@@ -139,6 +175,7 @@ def directional_derivative_ad(scene, cfg, target, get, set_, direction,
                               num_samples: int = 1) -> float:
     """AD directional derivative of the loss along ``direction`` applied to
     the leaf that ``get``/``set_`` address."""
+    _check_differentiated(scene, cfg)
     theta = torch.zeros((), dtype=torch.float32, device=scene.device, requires_grad=True)
     with torch.enable_grad():
         moved = get(scene).detach() + theta * direction

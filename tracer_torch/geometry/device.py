@@ -72,6 +72,15 @@ class Planes:
     textured: torch.Tensor  # (P,) i32: sample the bound texture for albedo
 
 
+@dataclass(frozen=True)
+class AnalyticTriangles:
+    """Standalone triangles (worksheet-1 scenes, ``w1e6.wgsl:145-149``)."""
+
+    verts: torch.Tensor  # (R, 3, 3) f32
+    shader: torch.Tensor  # (R,) i32
+    base_color: torch.Tensor  # (R, 3) f32
+
+
 def _tri_table(verts, norms, idx, mat_ids):
     """Per-triangle attribute rows gathered on the device: v0 v1 v2 (9),
     n0 n1 n2 (9), mat id (1), padding to TRI_COLS."""

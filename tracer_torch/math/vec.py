@@ -78,6 +78,10 @@ def exp(x):
     return _via_f64(torch.exp, x)
 
 
+def pow(x, y):
+    return _via_f64(torch.pow, x, y)
+
+
 class _Abs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):

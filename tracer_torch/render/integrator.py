@@ -1,25 +1,33 @@
-"""Wavefront integrator (port of ``tracer.render.integrator``): the
-direct-mode mesh slice and path mode on a mesh with analytic spheres and
-planes.
+"""Wavefront integrator (port of ``tracer.render.integrator``): direct mode
+and path mode over analytic spheres, planes and triangles and a triangle
+mesh.
 
-The whole W*H pixel wavefront advances together.
+The whole W*H pixel wavefront advances together, one bounce at a time;
+every lane evaluates the shader arms its scene can produce, and masks
+select the results, as in the JAX package.
 
-* Direct mode: closest hit against the triangle mesh through the flat
-  treelet engine (or the brute-force engine for meshes of 64 triangles or
-  fewer), the Lambertian shade under the ``directional_n`` light with the
-  ``plain_scaled`` ambient term (project.wgsl), and the background colour
-  on misses. Scenes whose shaders cannot spawn a continuation ray take
-  exactly one bounce (``_single_bounce``).
+* Direct mode (worksheets 1-7 and the ``Project:`` rows): the closest hit
+  over the analytic primitives and the mesh (the flat treelet engine, or
+  the brute-force engine for meshes of 64 triangles or fewer), the
+  background colour on misses, and the direct shader arms: the Lambertian
+  under the ``point_w1``, ``directional``, ``directional_n`` and
+  ``area_all`` lights (shadow rays through ``trace_occluded``) with the
+  ``mix``, ``mix_ka``, ``plain`` and ``plain_scaled`` ambient terms, Phong,
+  the mirror, the deterministic transmit (glossy = Phong + transmit), the
+  normal and base-colour arms, and textured planes. Each pixel averages
+  ``scene.jitters``' stratified sub-samples. Scenes whose shaders cannot
+  spawn a continuation ray take exactly one bounce (``_single_bounce``);
+  the others run the same bounce loop as path mode.
 * Path mode (``W7 E3``, ``W8 E1``-``E3``, ``W9 E1``/``E2``): per-pixel
   random jitter and streams (``math.rng``), a multi-bounce ``while`` or
-  ``scan`` loop that stops when every lane is done, analytic spheres and
-  planes, the mesh through the packet engine or the brute-force engine,
-  the environment map (or the background colour) on misses, and four
-  shaders: the path-traced Lambertian (one-sample next-event estimation
-  over the emissive triangles with a shadow ray, emission gating, and
-  Russian roulette with cosine-hemisphere continuation), the mirror, the
-  stochastic Fresnel dielectric with optional Beer-Lambert absorption, and
-  the holdout, whose ambient-occlusion probe is a mesh any-hit query.
+  ``scan`` loop that stops when every lane is done, the mesh through the
+  packet engine or the brute-force engine, the environment map (or the
+  background colour) on misses, and four shaders: the path-traced
+  Lambertian (one-sample next-event estimation over the emissive triangles
+  with a shadow ray, emission gating, and Russian roulette with
+  cosine-hemisphere continuation), the mirror, the stochastic Fresnel
+  dielectric with optional Beer-Lambert absorption, and the holdout, whose
+  ambient-occlusion probe is a mesh any-hit query.
 
 The path is differentiable as in the JAX package: the traversal runs on
 detached inputs under ``no_grad`` and returns integer ids, and every hit
@@ -50,10 +58,13 @@ import torch
 
 from tracer_torch.accel import flat, packet
 from tracer_torch.geometry.device import (
+    SHADER_BASECOLOR,
     SHADER_GLOSSY,
     SHADER_HOLDOUT,
     SHADER_LAMBERTIAN,
     SHADER_MIRROR,
+    SHADER_NORMAL,
+    SHADER_PHONG,
     SHADER_TRANSMIT,
     SHADER_TRANSPARENT,
     fetch_tri_rows,
@@ -127,6 +138,9 @@ def _update(best: Hit, closer, **new_fields) -> Hit:
 # most this many rows likewise (``:563-568``).
 ONE_HOT_MAX_TRIANGLES = 128
 ONE_HOT_MAX_LIGHTS = 64
+# The analytic triangles' test rejects near-parallel rays
+# (``tracer/render/integrator.py:218-224``); the mesh's does not.
+TRI_EPS_DENOM = 1e-10
 
 
 def _one_hot(ids, table):
@@ -167,8 +181,8 @@ def _effective_traversal(scene: Scene, cfg: SceneConfig) -> str:
 
 def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
                   seed_t=None) -> Hit:
-    """Closest hit over the analytic spheres and planes and the triangle
-    mesh, as the reference's sequential tmax-shrinking fold
+    """Closest hit over the analytic spheres, planes and triangles and the
+    triangle mesh, as the reference's sequential tmax-shrinking fold
     (``w8e3.wgsl:290-311``). The mesh goes through the brute-force engine
     (``traversal == "brute"``), else through the flat engine in direct mode
     and through the packet engine in path mode (incoherent bounces defeat
@@ -182,8 +196,10 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
     dev = rays.o.device
     f32 = torch.float32
     z3 = torch.zeros((n, 3), dtype=f32, device=dev)
+    yes = torch.ones(n, dtype=torch.bool, device=dev)
+    no = torch.zeros(n, dtype=torch.bool, device=dev)
     best = Hit(
-        valid=torch.zeros(n, dtype=torch.bool, device=dev),
+        valid=no,
         t=rays.tmax,
         position=z3,
         normal=z3,
@@ -195,9 +211,9 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         ior=torch.full((n,), cfg.sphere_ior_default, dtype=f32, device=dev),
         extinction=z3,
         uv=torch.zeros((n, 2), dtype=f32, device=dev),
-        textured=torch.zeros(n, dtype=torch.bool, device=dev),
-        is_mesh=torch.zeros(n, dtype=torch.bool, device=dev),
-        converged=torch.ones(n, dtype=torch.bool, device=dev),
+        textured=no,
+        is_mesh=no,
+        converged=yes,
     )
 
     spheres = scene.spheres
@@ -209,7 +225,7 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         shader = _resolve_shader(int(spheres.shader[i]), scene.uniforms)
         best = _update(
             best, ok,
-            valid=torch.ones(n, dtype=torch.bool, device=dev),
+            valid=yes,
             t=t,
             position=pos,
             normal=vec.normalize(pos - c, eps=1e-24),
@@ -218,8 +234,8 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
             emission=z3,
             ior=spheres.ior[i].expand(n),
             extinction=spheres.extinction[i].expand(n, 3),
-            is_mesh=torch.zeros(n, dtype=torch.bool, device=dev),
-            textured=torch.zeros(n, dtype=torch.bool, device=dev),
+            is_mesh=no,
+            textured=no,
         )
 
     planes = scene.planes
@@ -233,7 +249,7 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         shader = _resolve_shader(int(planes.shader[i]), scene.uniforms)
         best = _update(
             best, ok,
-            valid=torch.ones(n, dtype=torch.bool, device=dev),
+            valid=yes,
             t=t,
             position=pos,
             normal=nrm0.expand(n, 3),
@@ -242,10 +258,31 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
             emission=z3,
             uv=torch.stack([torch.abs(u), torch.abs(v)], dim=-1),
             textured=(planes.textured[i] != 0).expand(n),
-            is_mesh=torch.zeros(n, dtype=torch.bool, device=dev),
+            is_mesh=no,
+        )
+
+    tris = scene.tris
+    for i in range(0 if tris is None else tris.shader.shape[0]):
+        v0, v1, v2 = tris.verts[i, 0], tris.verts[i, 1], tris.verts[i, 2]
+        t, _, _, ok = intersect.triangle_t(Rays(rays.o, rays.d, rays.tmin, best.t),
+                                           v0, v1, v2, eps_denom=TRI_EPS_DENOM)
+        shader = _resolve_shader(int(tris.shader[i]), scene.uniforms)
+        best = _update(
+            best, ok,
+            valid=yes,
+            t=t,
+            position=rays.o + t[:, None] * rays.d,
+            normal=vec.normalize(vec.cross(v1 - v0, v2 - v0), eps=1e-24).expand(n, 3),
+            shader=torch.full((n,), shader, dtype=torch.int32, device=dev),
+            albedo=tris.base_color[i].expand(n, 3),
+            emission=z3,
+            is_mesh=no,
+            textured=no,
         )
 
     geom = scene.geom
+    if geom is None:
+        return best
     trav = _effective_traversal(scene, cfg)
     # The traversal carries no gradient: its inputs are detached and it
     # returns integer ids (the accel buffers hold no grads either).
@@ -255,7 +292,7 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         if trav == "brute":
             # Engines without caps always converge.
             _, tri = intersect.mesh_brute_force(sub, geom.vertices, geom.indices)
-            conv = torch.ones(n, dtype=torch.bool, device=dev)
+            conv = yes
         elif trav != "bvh":
             raise NotImplementedError(f"traversal {trav!r} is not ported")
         elif cfg.mode == "direct":
@@ -302,7 +339,7 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
     mrow = _material_rows(scene.materials, mat)
     best = _update(
         best, ok,
-        valid=torch.ones(n, dtype=torch.bool, device=dev),
+        valid=yes,
         t=t_d,
         position=pos,
         normal=nrm,
@@ -312,8 +349,8 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         specular=vec.mean3(mrow[:, 6:9]),
         shininess=mrow[:, 9],
         ior=mrow[:, 10],
-        is_mesh=torch.ones(n, dtype=torch.bool, device=dev),
-        textured=torch.zeros(n, dtype=torch.bool, device=dev),
+        is_mesh=yes,
+        textured=no,
     )
     return replace(best, converged=best.converged & conv)
 
@@ -322,7 +359,11 @@ def _mesh_only_anyhit(scene: Scene, cfg: SceneConfig, rays: Rays):
     """Trimesh-only occlusion, ``intersect_trimesh_immediate_return`` as the
     holdout shader uses it (``w9e2.wgsl:514-538``): the brute-force engine's
     any-hit (which always converges), or the flat engine's in direct mode
-    and the packet engine's in path mode. Returns (blocked, converged)."""
+    and the packet engine's in path mode; nothing blocks without a mesh.
+    Returns (blocked, converged)."""
+    if scene.geom is None:
+        no = torch.zeros(rays.o.shape[0], dtype=torch.bool, device=rays.o.device)
+        return no, ~no
     trav = _effective_traversal(scene, cfg)
     with torch.no_grad():
         srays = Rays(rays.o.detach(), rays.d.detach(), rays.tmin.detach(),
@@ -339,20 +380,37 @@ def _mesh_only_anyhit(scene: Scene, cfg: SceneConfig, rays: Rays):
 
 
 def trace_occluded(scene: Scene, cfg: SceneConfig, rays: Rays):
-    """Occlusion over the whole scene (shadow rays): the analytic spheres and
-    planes, then the mesh's any-hit query. The reference's shadow test
-    reuses the closest-hit ``intersect_scene`` (``w8e3.wgsl:469-471``) and
-    reads only whether it hit. Returns (blocked, converged)."""
+    """Occlusion over the whole scene (shadow rays): the analytic spheres,
+    planes and triangles, then the mesh's any-hit query. The reference's
+    shadow test reuses the closest-hit ``intersect_scene``
+    (``w8e3.wgsl:469-471``) and reads only whether it hit. Returns
+    (blocked, converged)."""
     blocked = torch.zeros(rays.o.shape[0], dtype=torch.bool, device=rays.o.device)
-    spheres, planes = scene.spheres, scene.planes
+    spheres, planes, tris = scene.spheres, scene.planes, scene.tris
     for i in range(0 if spheres is None else spheres.radius.shape[0]):
         _, ok = intersect.sphere_t(rays, spheres.center[i], spheres.radius[i])
         blocked = blocked | ok
     for i in range(0 if planes is None else planes.normal.shape[0]):
         _, ok = intersect.plane_t(rays, planes.position[i], planes.normal[i])
         blocked = blocked | ok
+    for i in range(0 if tris is None else tris.shader.shape[0]):
+        _, _, _, ok = intersect.triangle_t(rays, tris.verts[i, 0], tris.verts[i, 1],
+                                           tris.verts[i, 2], eps_denom=TRI_EPS_DENOM)
+        blocked = blocked | ok
     b, conv = _mesh_only_anyhit(scene, cfg, rays)
     return blocked | b, conv
+
+
+def _sample_point_light_w1(pos, cfg: SceneConfig):
+    """``sample_point_light`` (``w1e6.wgsl:239-252``) with the reference's
+    quirks: ``w_i`` is the unnormalized offset to the light, and ``l_i``
+    divides by ``|d|^4`` (``dist2`` is the squared distance). Returns
+    (l_i, w_i, dist2)."""
+    lp = torch.tensor(cfg.point_light_pos, dtype=torch.float32, device=pos.device)
+    li = torch.tensor(cfg.point_light_intensity, dtype=torch.float32, device=pos.device)
+    d = lp - pos
+    dist2 = vec.dot(d, d)
+    return li / (dist2 * dist2)[..., None], d, dist2
 
 
 def _sample_directional(cfg: SceneConfig, n: int, device):
@@ -409,45 +467,139 @@ def _sample_area_light_mc(scene: Scene, pos, light_slot, state):
     return l_i, w_i, dist, state
 
 
+def _sample_area_light_center(scene: Scene, pos, light_slot):
+    """The deterministic variant of ``w5e5.wgsl:247-268``: the light
+    triangle's centre, with the light's cosine unclamped. Returns (l_i,
+    w_i, dist)."""
+    v0, v1, v2, l_e, area, nrm = _area_light_attrs(scene, light_slot)
+    d = vec.div(v0 + v1 + v2, 3.0) - pos
+    dist = vec.sqrt(vec.dot(d, d))
+    w_i = vec.normalize(d, eps=1e-24)
+    cos_l = vec.dot(-w_i, nrm)
+    l_i = l_e * (area * cos_l / (dist * dist))[..., None]
+    return l_i, w_i, dist
+
+
+def _plane_albedo(scene: Scene, cfg: SceneConfig, hit: Hit):
+    """The albedo, textured on textured planes (w3): fract(uv * uv_scale)
+    sampled by the ``use_texture`` uniform's sampler; ``TEX_NONE``, or no
+    texture bound, keeps the base colour."""
+    mode = scene.uniforms.use_texture
+    if not (cfg.plane_texture and scene.texture is not None) or mode == tex.TEX_NONE:
+        return hit.albedo
+    uv = hit.uv * torch.tensor(scene.uniforms.uv_scale, dtype=torch.float32,
+                               device=hit.uv.device)
+    u = uv[..., 0] - torch.floor(uv[..., 0])
+    v = uv[..., 1] - torch.floor(uv[..., 1])
+    return vec.where(hit.textured, tex.sample(scene.texture, u, v, mode), hit.albedo)
+
+
+def _lane_fill(x: float, like):
+    """An (N,) float32 tensor of ``x`` on ``like``'s lanes and device."""
+    return torch.full(like.shape[:1], x, dtype=torch.float32, device=like.device)
+
+
 def _shade_lambertian_direct(scene, cfg, rays, hit, albedo):
-    """Direct Lambertian (project.wgsl:286-295): the ``directional_n`` light
-    without a shadow ray and the ``plain_scaled`` ambient term. Returns
-    (color, converged)."""
+    """Direct Lambertian of the w1/w2/w5/w6/project family
+    (``tracer/render/integrator.py:705-798``): the lights of ``cfg.lights``
+    with their shadow rays, then the ambient term. Returns (color,
+    converged)."""
     n_lanes = hit.t.shape[0]
     dev = hit.t.device
     nrm = hit.normal
     conv = torch.ones(n_lanes, dtype=torch.bool, device=dev)
     diffuse = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
+    blocked_point = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
+    any_point_light = False
     for kind in cfg.lights:
-        if kind != "directional_n":
-            raise NotImplementedError(f"light kind {kind!r} is not ported")
-        # One unscaled directional sample; no shadow ray (project.wgsl:286-293).
-        l_i, w_i, _ = _sample_directional(cfg, n_lanes, dev)
-        diffuse = diffuse + albedo * vec.div(vec.dot(nrm, w_i)[..., None] * l_i, PI)
-    if cfg.ambient != "plain_scaled":
-        raise NotImplementedError(f"ambient mode {cfg.ambient!r} is not ported")
-    return diffuse + 0.1 * hit.emission, conv
+        if kind in ("point_w1", "directional"):
+            any_point_light = True
+            if kind == "point_w1":
+                l_i, w_i, _ = _sample_point_light_w1(hit.position, cfg)
+            else:
+                l_i, w_i, _ = _sample_directional(cfg, n_lanes, dev)
+            if cfg.shadows:
+                sray = Rays(o=hit.position + nrm * cfg.eta, d=w_i,
+                            tmin=_lane_fill(cfg.eta, nrm), tmax=_lane_fill(cfg.tmax, nrm))
+                b1, c1 = trace_occluded(scene, cfg, sray)
+                # The point light's shadow replaces earlier ones; the
+                # directional light's adds to them.
+                blocked_point = b1 if kind == "point_w1" else blocked_point | b1
+                conv = conv & c1
+            # light_diffuse_contribution (w1e6.wgsl:274-280): unclamped dot.
+            diffuse = diffuse + albedo * (
+                vec.dot(nrm, w_i)[..., None] * l_i
+                * vec.div(1.0 - hit.specular, PI)[..., None])
+        elif kind == "directional_n":
+            # The w6e1/project loop over lightIndices with a directional
+            # sampler ends in ``break``: one unscaled directional sample
+            # and no shadow ray (project.wgsl:286-293).
+            l_i, w_i, _ = _sample_directional(cfg, n_lanes, dev)
+            diffuse = diffuse + albedo * vec.div(vec.dot(nrm, w_i)[..., None] * l_i, PI)
+        elif kind == "area_all":
+            # w5e5.wgsl:293-318: every emissive triangle, its centre sample,
+            # and a shadow ray from the hit point with no normal offset.
+            n_lights = 0 if scene.light_indices is None else int(scene.light_indices.shape[0])
+            for slot in range(n_lights):
+                l_i, w_i, dist = _sample_area_light_center(
+                    scene, hit.position,
+                    torch.full((n_lanes,), slot, dtype=torch.int32, device=dev))
+                sray = Rays(o=hit.position, d=w_i, tmin=_lane_fill(cfg.eta, nrm),
+                            tmax=dist - cfg.eta)
+                blocked, c1 = trace_occluded(scene, cfg, sray)
+                conv = conv & c1
+                contrib = vec.div(albedo * vec.dot(nrm, w_i)[..., None] * l_i, PI)
+                diffuse = diffuse + vec.where(~blocked, contrib, 0.0)
+        else:
+            raise NotImplementedError(f"light kind {kind!r} in direct mode")
+    if cfg.ambient in ("mix", "mix_ka"):
+        # "mix": the base colour is the ambient term (w2e1.wgsl:316);
+        # "mix_ka": the mesh material's Ka (w6e1.wgsl:295-297), carried as
+        # hit.emission; analytic hits keep the base colour.
+        ambient = vec.where(hit.is_mesh, hit.emission, albedo) if cfg.ambient == "mix_ka" \
+            else albedo
+        lit = 0.9 * diffuse + 0.1 * ambient
+        if cfg.shadows and any_point_light:
+            return vec.where(blocked_point, ambient * 0.1, lit), conv
+        return lit, conv
+    if cfg.ambient == "plain_scaled":
+        return diffuse + 0.1 * hit.emission, conv
+    # "plain": diffuse + the material's emission as ambient term (w5e5).
+    return diffuse + hit.emission, conv
 
 
-def shade(scene, cfg, rays, hit):
-    """Material dispatch (the WGSL ``shade`` switch) for direct mode: the
-    Lambertian arm; lanes of any other shader get the error colour.
-    Returns (color, converged)."""
-    n_lanes = hit.t.shape[0]
-    dev = hit.t.device
-    color = torch.tensor(ERROR_COLOR, dtype=torch.float32, device=dev).expand(n_lanes, 3)
-    conv_out = torch.ones(n_lanes, dtype=torch.bool, device=dev)
-    possible = set(cfg.possible_shaders)
-    if possible - {SHADER_LAMBERTIAN}:
-        raise NotImplementedError(
-            f"shaders {sorted(possible - {SHADER_LAMBERTIAN})} are not ported")
-    if cfg.mode != "direct":
-        raise NotImplementedError(f"mode {cfg.mode!r} is not ported")
-    m = hit.shader == SHADER_LAMBERTIAN
-    c, cv = _shade_lambertian_direct(scene, cfg, rays, hit, hit.albedo)
-    color = vec.where(m, c, color)
-    conv_out = conv_out & (~m | cv)
-    return color, conv_out
+def _shade_phong(scene, cfg, rays, hit):
+    """``phong`` (``w2e5.wgsl:374-389``): the Phong lobe lit by the point
+    light."""
+    w_o = vec.normalize(scene.camera.eye - hit.position, eps=1e-24)
+    l_i, w_i, _ = _sample_point_light_w1(hit.position, cfg)
+    w_r = vec.normalize(vec.reflect(-w_i, hit.normal), eps=1e-24)
+    diffuse = vec.div(vec.saturate(vec.dot(hit.normal, w_i))[..., None] * l_i, PI)
+    coeff = vec.div(hit.specular * (hit.shininess + 2.0), 2.0 * PI)
+    lobe = coeff * vec.pow(vec.saturate(vec.dot(w_o, w_r)), hit.shininess)
+    return lobe[..., None] * diffuse
+
+
+def _shade_transmit_direct(rays, hit, cfg):
+    """``transmit`` of w2e3/w2e5 (``w2e5.wgsl:410-446``): deterministic
+    refraction, with the reference's out-normal and ior selection; total
+    internal reflection gives the error colour and ends the path. Returns
+    (color, new_rays, cont)."""
+    w_i = -vec.normalize(rays.d, eps=1e-24)
+    nrm = vec.normalize(hit.normal, eps=1e-24)
+    cos_i = vec.dot(w_i, nrm)
+    outside = cos_i < 0.0
+    ior = torch.where(outside, hit.ior, torch.reciprocal(hit.ior))
+    out_normal = vec.where(outside, -nrm, nrm)
+    cos_t2 = 1.0 - (ior * ior) * (1.0 - cos_i * cos_i)
+    tir = cos_t2 < 0.0
+    sq = vec.sqrt(torch.clamp_min(cos_t2, 0.0))
+    tangent = nrm * cos_i[..., None] - w_i
+    w_t = ior[..., None] * tangent - out_normal * sq[..., None]
+    new_rays = Rays(o=hit.position + w_t * cfg.eta, d=w_t,
+                    tmin=_lane_fill(cfg.eta, w_t), tmax=_lane_fill(cfg.tmax, w_t))
+    err = torch.tensor(ERROR_COLOR, dtype=torch.float32, device=w_t.device)
+    return vec.where(tir, err.expand(w_t.shape), 0.0), new_rays, ~tir
 
 
 def _shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state):
@@ -461,11 +613,11 @@ def _shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state):
     dev = hit.t.device
     if "directional" in cfg.lights:
         raise NotImplementedError("next-event estimation with the sun is not ported")
-    brdf = vec.div(hit.albedo, PI)
+    brdf = vec.div(_plane_albedo(scene, cfg, hit), PI)
     nrm = hit.normal
     conv = torch.ones(n_lanes, dtype=torch.bool, device=dev)
     diffuse = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
-    L = int(scene.light_indices.shape[0])
+    L = 0 if scene.light_indices is None else int(scene.light_indices.shape[0])
     if "area_mc" in cfg.lights and L > 0:
         ri, state = rng.rnd_int(state)
         l_i, w_i, dist, state = _sample_area_light_mc(scene, hit.position, ri % L, state)
@@ -612,60 +764,86 @@ def _shade_holdout(scene, cfg, rays, hit, factor, state):
     return color, state, conv
 
 
-# Shader ids of the path-mode switch.
-PATH_SHADERS = frozenset(
-    {SHADER_LAMBERTIAN, SHADER_MIRROR, SHADER_TRANSPARENT, SHADER_HOLDOUT})
-
-
-def shade_path(scene, cfg, rays, hit, factor, emit, state):
-    """Material dispatch of path mode (the WGSL ``shade`` switch,
-    ``w9e2.wgsl:436-466``) as masked branch blending over the shaders the
-    scene can produce, in the JAX package's order: Lambertian, mirror,
-    transparent, holdout. Lanes of any other shader get the error colour.
-    Returns (color, new_rays, cont, factor', emit', state', converged)."""
+def shade(scene, cfg, rays, hit, factor, emit, state):
+    """Material dispatch, the WGSL ``shade`` switch (``w9e2.wgsl:436-466``),
+    as masked branch blending in the JAX package's order
+    (``tracer/render/integrator.py:1044-1158``). Only the ids of
+    ``cfg.possible_shaders`` get an arm (each reference scene compiles only
+    its own switch arms); any other id gets the error colour. Two arms mean
+    different things in the two modes: the mirror keeps ``emit`` in direct
+    mode and sets it in path mode, and the transparent shader (7) is the
+    deterministic transmit in direct mode and the stochastic dielectric in
+    path mode. ``state`` may be None where no arm draws (direct mode
+    without the holdout). Returns (color, new_rays, cont, factor', emit',
+    state', converged)."""
     n_lanes = hit.t.shape[0]
     dev = hit.t.device
+    path = cfg.mode == "path"
     possible = set(cfg.possible_shaders)
-    if possible - PATH_SHADERS:
-        raise NotImplementedError(
-            f"shaders {sorted(possible - PATH_SHADERS)} are not ported in path mode")
     sid = hit.shader
-    no = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
     yes = torch.ones(n_lanes, dtype=torch.bool, device=dev)
     out = dict(
         color=torch.tensor(ERROR_COLOR, dtype=torch.float32, device=dev).expand(n_lanes, 3),
-        rays=rays, cont=no, factor=factor, emit=emit, state=state, conv=yes,
+        rays=rays, cont=~yes, factor=factor, emit=emit, state=state, conv=yes,
     )
 
-    def merge(mask, c, nr, ct, f, e, s, cv=yes):
-        r = out["rays"]
+    def merge(mask, c, nr=None, ct=None, f=None, e=None, s=None, cv=None):
+        """The lanes of ``mask`` take this arm's results. A result that is
+        None, or the input passed through, is not merged: the masks are
+        disjoint, so those lanes still hold the input."""
         out["color"] = vec.where(mask, c, out["color"])
-        out["rays"] = Rays(
-            o=vec.where(mask, nr.o, r.o),
-            d=vec.where(mask, nr.d, r.d),
-            tmin=torch.where(mask, nr.tmin, r.tmin),
-            tmax=torch.where(mask, nr.tmax, r.tmax),
-        )
-        out["cont"] = torch.where(mask, ct, out["cont"])
-        out["factor"] = vec.where(mask, f, out["factor"])
-        out["emit"] = torch.where(mask, e, out["emit"])
-        out["state"] = torch.where(mask, s, out["state"])
-        out["conv"] = out["conv"] & (~mask | cv)
+        if nr is not None and nr is not rays:
+            r = out["rays"]
+            out["rays"] = Rays(
+                o=vec.where(mask, nr.o, r.o),
+                d=vec.where(mask, nr.d, r.d),
+                tmin=torch.where(mask, nr.tmin, r.tmin),
+                tmax=torch.where(mask, nr.tmax, r.tmax),
+            )
+        if ct is not None:
+            out["cont"] = torch.where(mask, ct, out["cont"])
+        if f is not None and f is not factor:
+            out["factor"] = vec.where(mask, f, out["factor"])
+        if e is not None and e is not emit:
+            out["emit"] = torch.where(mask, e, out["emit"])
+        if s is not None and s is not state:
+            out["state"] = torch.where(mask, s, out["state"])
+        if cv is not None:
+            out["conv"] = out["conv"] & (~mask | cv)
 
+    albedo = _plane_albedo(scene, cfg, hit)
     if SHADER_LAMBERTIAN in possible:
         m = sid == SHADER_LAMBERTIAN
-        merge(m, *_shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state))
+        if path:
+            merge(m, *_shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state))
+        else:
+            c, cv = _shade_lambertian_direct(scene, cfg, rays, hit, albedo)
+            merge(m, c, cv=cv)
+    if SHADER_PHONG in possible:
+        merge(sid == SHADER_PHONG, _shade_phong(scene, cfg, rays, hit))
     if SHADER_MIRROR in possible:
-        m = sid == SHADER_MIRROR
         z3 = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
-        merge(m, z3, _reflect_continue(rays, hit, cfg), yes, factor, yes, state)
-    if SHADER_TRANSPARENT in possible:
-        m = sid == SHADER_TRANSPARENT
-        merge(m, *_shade_transparent_path(scene, cfg, rays, hit, factor, state))
+        merge(sid == SHADER_MIRROR, z3, _reflect_continue(rays, hit, cfg), yes,
+              e=yes if path else None)
+    transparent_direct = SHADER_TRANSPARENT in possible and not path
+    if possible & {SHADER_TRANSMIT, SHADER_GLOSSY} or transparent_direct:
+        tc, tnr, tct = _shade_transmit_direct(rays, hit, cfg)
+        if SHADER_TRANSMIT in possible:
+            merge(sid == SHADER_TRANSMIT, tc, tnr, tct)
+        if SHADER_GLOSSY in possible:
+            merge(sid == SHADER_GLOSSY, _shade_phong(scene, cfg, rays, hit) + tc, tnr, tct)
+        if transparent_direct:
+            merge(sid == SHADER_TRANSPARENT, tc, tnr, tct)
+    if SHADER_NORMAL in possible:
+        merge(sid == SHADER_NORMAL, (hit.normal + 1.0) * 0.5)
+    if SHADER_BASECOLOR in possible:
+        merge(sid == SHADER_BASECOLOR, albedo + hit.emission)
+    if SHADER_TRANSPARENT in possible and path:
+        merge(sid == SHADER_TRANSPARENT,
+              *_shade_transparent_path(scene, cfg, rays, hit, factor, state))
     if SHADER_HOLDOUT in possible:
-        m = sid == SHADER_HOLDOUT
         c, s, cv = _shade_holdout(scene, cfg, rays, hit, factor, state)
-        merge(m, c, rays, no, factor, emit, s, cv)
+        merge(sid == SHADER_HOLDOUT, c, s=s, cv=cv)
     return (out["color"], out["rays"], out["cont"], out["factor"], out["emit"],
             out["state"], out["conv"])
 
@@ -688,15 +866,14 @@ def bounce_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0=None,
     Returns (radiance (N, 3), next seed (N,)).
 
     Single-bounce scenes take one bounce, and the seed is the mesh hit
-    distance (0 where the lane missed). Path mode runs the ``while`` or
-    ``scan`` loop (``_path_loop``) from the per-lane random streams
-    ``state0``, and the seed is zeros.
+    distance (0 where the lane missed). The others run the ``while`` or
+    ``scan`` loop (``_loop``) from the per-lane random streams ``state0``,
+    and the seed is zeros.
     """
     if not (_single_bounce(cfg) and cfg.max_depth >= 1):
-        if cfg.mode != "path" or cfg.loop not in ("while", "scan"):
-            raise NotImplementedError(
-                f"the {cfg.loop!r} bounce loop in {cfg.mode!r} mode is not ported")
-        radiance = _path_loop(scene, cfg, rays0, state0, full_depth)
+        if cfg.loop not in ("while", "scan"):
+            raise NotImplementedError(f"the {cfg.loop!r} bounce loop is not ported")
+        radiance = _loop(scene, cfg, rays0, state0, full_depth)
         return radiance, torch.zeros_like(radiance[:, 0])
     n = rays0.o.shape[0]
     dev = rays0.o.device
@@ -707,7 +884,10 @@ def bounce_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0=None,
     result = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     result = result + vec.where(miss, bg, 0.0)
     live = hit.valid
-    color, shade_conv = shade(scene, cfg, rays0, hit)
+    # The loop's initial throughput and emit flag, as views.
+    factor = torch.ones(3, dtype=torch.float32, device=dev).expand(n, 3)
+    emit = torch.ones(1, dtype=torch.bool, device=dev).expand(n)
+    color, *_, shade_conv = shade(scene, cfg, rays0, hit, factor, emit, state0)
     bad = bad | (live & ~shade_conv)
     if cfg.firefly_clamp > 0.0:
         color = torch.clamp_max(color, cfg.firefly_clamp)
@@ -717,11 +897,11 @@ def bounce_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0=None,
 
 
 def _bounce(scene: Scene, cfg: SceneConfig, carry: tuple) -> tuple:
-    """One bounce of the wavefront (the body of the JAX package's loops,
-    ``tracer/render/integrator.py:1201-1253``). ``carry`` is (ray origin,
-    direction, tmin, tmax, result, factor, emit, done, bad, random state),
-    all tensors, the random state an explicit int64 tensor, so a
-    recomputed bounce draws the same numbers."""
+    """One bounce of the wavefront, in either mode (the body of the JAX
+    package's loops, ``tracer/render/integrator.py:1201-1253``). ``carry``
+    is (ray origin, direction, tmin, tmax, result, factor, emit, done, bad,
+    random state), all tensors, the random state an explicit int64 tensor,
+    so a recomputed bounce draws the same numbers."""
     o, d, tmin, tmax, result, factor, emit, done, bad, state = carry
     n, dev = o.shape[0], o.device
     # Done lanes collapse their interval to empty, so the engines'
@@ -736,7 +916,7 @@ def _bounce(scene: Scene, cfg: SceneConfig, carry: tuple) -> tuple:
         bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev).expand(n, 3)
     result = result + vec.where(miss, bg, 0.0)
     live = hit.valid & ~done
-    color, new_rays, cont, factor2, emit2, state2, shade_conv = shade_path(
+    color, new_rays, cont, factor2, emit2, state2, shade_conv = shade(
         scene, cfg, rays, hit, factor, emit, state)
     bad = bad | (live & ~shade_conv)
     if cfg.firefly_clamp > 0.0:
@@ -784,8 +964,8 @@ def _remat(cfg: SceneConfig, body):
                                      preserve_rng_state=False, **kw)
 
 
-def _path_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0,
-               full_depth: bool = False):
+def _loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0,
+          full_depth: bool = False):
     """Up to ``max_depth`` bounces, stopping as soon as every lane is done
     (one host read of the done mask per bounce); ``full_depth`` runs all
     ``max_depth`` bounces, as the JAX package's ``scan`` does, which gives
@@ -816,14 +996,16 @@ def _paint_bad(result, bad):
     return vec.where(bad, err.expand(result.shape), result)
 
 
-def primary_rays(scene: Scene, cfg: SceneConfig) -> Rays:
+def primary_rays(scene: Scene, cfg: SceneConfig, jitter=None) -> Rays:
+    """Direct-mode primary rays through the pixel centres offset by
+    ``jitter`` ((2,), one stratified sub-sample; None is zero jitter)."""
     w, h = cfg.width, cfg.height
     dev = scene.device
     u, v = pixel_uv(w, h, device=dev)
     n = w * h
-    # Direct mode without subdivision: one stratum, zero jitter.
-    jitter = torch.zeros((n, 2), dtype=torch.float32, device=dev)
-    rays = camera_rays(scene.camera, u, v, jitter)
+    if jitter is None:
+        jitter = torch.zeros(2, dtype=torch.float32, device=dev)
+    rays = camera_rays(scene.camera, u, v, jitter.expand(n, 2))
     return Rays(
         rays.o, rays.d,
         torch.full((n,), cfg.eta, dtype=torch.float32, device=dev),
@@ -839,8 +1021,7 @@ def _path_primary(scene: Scene, cfg: SceneConfig):
     dev = scene.device
     u, v = pixel_uv(w, h, device=dev)
     n = w * h
-    state = rng.pixel_seed(torch.arange(n, dtype=torch.int64, device=dev),
-                           scene.uniforms.iteration)
+    state = _pixel_states(scene, cfg)
     j1, state = rng.rnd(state)
     j2, state = rng.rnd(state)
     jitter = vec.div(torch.stack([j1, j2], dim=-1), float(h))
@@ -852,26 +1033,66 @@ def _path_primary(scene: Scene, cfg: SceneConfig):
     ), state
 
 
+def _pixel_states(scene: Scene, cfg: SceneConfig):
+    """Each pixel's random stream, seeded by (launch index, iteration)."""
+    n = cfg.width * cfg.height
+    return rng.pixel_seed(torch.arange(n, dtype=torch.int64, device=scene.device),
+                          scene.uniforms.iteration)
+
+
+def _direct_states(scene: Scene, cfg: SceneConfig):
+    """Direct mode's random streams: its arms draw nothing, but the holdout
+    does, and the bounce loop carries them as the JAX package's does. A
+    single bounce without the holdout reads none (the JAX package's
+    compiler drops them there)."""
+    if _single_bounce(cfg) and SHADER_HOLDOUT not in cfg.possible_shaders:
+        return None
+    return _pixel_states(scene, cfg)
+
+
+def _jitters(scene: Scene):
+    """Direct mode's stratified sub-pixel offsets, (k, 2)."""
+    if scene.jitters is None:
+        return torch.zeros((1, 2), dtype=torch.float32, device=scene.device)
+    return scene.jitters
+
+
 def render_sample(scene: Scene, cfg: SceneConfig, full_depth: bool = False):
     """One sample pass over the full W x H wavefront (no temporal seed).
+    Direct mode averages the stratified sub-samples of ``scene.jitters``
+    (``w3e3.wgsl:150-165``): their sum in order, divided by their count.
     ``full_depth``: path mode runs all ``max_depth`` bounces (see
-    ``_path_loop``)."""
+    ``_loop``)."""
     if cfg.mode == "path":
         rays, state = _path_primary(scene, cfg)
         return bounce_loop(scene, cfg, rays, state, full_depth=full_depth)[0]
-    return bounce_loop(scene, cfg, primary_rays(scene, cfg))[0]
+    jitters = _jitters(scene)
+    state = _direct_states(scene, cfg)
+    acc = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32, device=scene.device)
+    for i in range(jitters.shape[0]):
+        acc = acc + bounce_loop(scene, cfg, primary_rays(scene, cfg, jitters[i]), state)[0]
+    return vec.div(acc, float(jitters.shape[0]))
 
 
 def render_sample_seeded(scene: Scene, cfg: SceneConfig, seed_t):
     """``render_sample`` with temporal t-bound seeding: the flat engine's
-    per-sub-tile break bounds start at last frame's depths. Returns
-    (radiance, next_seed); the radiance equals the unseeded render's, since
-    lanes whose hint undershoots are re-traced by the repair pass. Scenes
-    of more than one bounce, and meshes off the treelet engines, are not
-    seeded: their seed passes through."""
-    if not _single_bounce(cfg) or _effective_traversal(scene, cfg) != "bvh":
+    per-sub-tile break bounds start at last frame's depths, each sub-sample
+    from the one before it. Returns (radiance, next_seed); the radiance
+    equals the unseeded render's, since lanes whose hint undershoots are
+    re-traced by the repair pass. Scenes of more than one bounce, and
+    meshes off the treelet engines, are not seeded: their seed passes
+    through."""
+    if not _single_bounce(cfg) or scene.tb is None \
+            or _effective_traversal(scene, cfg) != "bvh":
         return render_sample(scene, cfg), seed_t
-    return bounce_loop(scene, cfg, primary_rays(scene, cfg), seed_t=seed_t)
+    jitters = _jitters(scene)
+    state = _direct_states(scene, cfg)
+    acc = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32, device=scene.device)
+    for i in range(jitters.shape[0]):
+        res, seed_t = bounce_loop(scene, cfg, primary_rays(scene, cfg, jitters[i]), state,
+                                  seed_t=seed_t)
+        acc = acc + res
+    return vec.div(acc, float(jitters.shape[0])), seed_t
 
 
 def accumulate(result, accum, iteration: int):

@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from tracer_torch.accel.treelet import TreeletBvh
-from tracer_torch.geometry.device import GeometryBuffers, MaterialTable, Planes
+from tracer_torch.geometry.device import AnalyticTriangles, GeometryBuffers, MaterialTable, Planes
 from tracer_torch.render.camera import Camera
 from tracer_torch.render.texture import TextureBuf
 
@@ -102,20 +102,27 @@ class SceneConfig:
 
 @dataclass(frozen=True)
 class Scene:
-    """The device state of one mesh scene on the ported paths."""
+    """The device state of one scene on the ported paths. Every part but
+    the camera and the uniforms may be absent: the worksheet-1 to -3 rows
+    have no mesh, most rows no spheres, planes or textures."""
 
     camera: Camera
     uniforms: Uniforms
-    geom: GeometryBuffers
-    materials: MaterialTable
-    light_indices: torch.Tensor  # (L,) i32 emissive triangle ids
+    geom: Optional[GeometryBuffers] = None  # triangle mesh (None: no mesh)
+    materials: Optional[MaterialTable] = None  # the mesh's materials
+    light_indices: Optional[torch.Tensor] = None  # (L,) i32 emissive triangle ids
     # Treelet BVH of the flat and packet engines; None on the brute-force
-    # route (meshes of 64 triangles or fewer).
-    tb: Optional[TreeletBvh]
+    # route (meshes of 64 triangles or fewer) and without a mesh.
+    tb: Optional[TreeletBvh] = None
     planes: Optional[Planes] = None  # analytic planes (None: no planes)
     env: Optional[TextureBuf] = None  # environment map (None: bg_color)
     spheres: Optional[Spheres] = None  # analytic spheres (None: no spheres)
+    tris: Optional[AnalyticTriangles] = None  # analytic triangles (None: none)
+    texture: Optional[TextureBuf] = None  # plane texture (None: base colour)
+    # (subdivs^2, 2) stratified sub-pixel offsets of direct mode (None: one
+    # sample at the pixel's centre).
+    jitters: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
-        return self.geom.vertices.device
+        return self.camera.eye.device

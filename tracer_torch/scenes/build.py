@@ -1,12 +1,15 @@
 """Scene building: descriptor -> device ``Scene`` (port of
-``tracer.scenes.build.build_scene`` for mesh rows).
+``tracer.scenes.build.build_scene``).
 
-Loads the model (or its procedural stand-in); for meshes of more than 64
+Uploads the analytic spheres, planes and triangles; loads the model (or its
+procedural stand-in; a missing model without one raises
+``FileNotFoundError``, as in the JAX package); for meshes of more than 64
 triangles builds the LBVH with the native C++ code, cuts it into treelets
 and gathers the block table on the device, while smaller meshes take the
 brute-force engine and get no acceleration structure, as in the JAX
-package. Uploads the mesh and the analytic spheres and planes and reads
-the environment map. Rows the port does not cover yet raise
+package. Reads the environment map and the plane texture (a missing file
+leaves it out, with the JAX package's note on stderr) and computes direct
+mode's stratified jitters. Rows the port does not cover yet raise
 ``NotImplementedError`` before any work is done.
 """
 
@@ -22,10 +25,11 @@ import torch
 from tracer_torch.accel import lbvh
 from tracer_torch.accel import treelet as treelet_mod
 from tracer_torch.geometry import obj as obj_mod
-from tracer_torch.geometry.device import SHADER_LAMBERTIAN, Planes, upload_mesh
+from tracer_torch.geometry.device import AnalyticTriangles, Planes, upload_mesh
 from tracer_torch.geometry.procedural import standin_for
+from tracer_torch.math.sampling import compute_jitters
+from tracer_torch.render import texture as tex
 from tracer_torch.render.camera import make_camera
-from tracer_torch.render.integrator import PATH_SHADERS
 from tracer_torch.render.scene import (
     FROM_SELECTION1,
     FROM_SELECTION2,
@@ -64,50 +68,43 @@ def _possible_shaders(desc: SceneDescriptor) -> tuple:
     return tuple(sorted(ids))
 
 
+# Direct mode's light kinds and ambient terms.
+DIRECT_LIGHTS = ("point_w1", "directional", "directional_n", "area_all")
+AMBIENTS = ("mix", "mix_ka", "plain", "plain_scaled")
+
+
 def unsupported(desc: SceneDescriptor, cfg: SceneConfig) -> list[str]:
-    """Why this row is outside the ported slices ([] when it is inside):
-    direct mode as ``Project: Dragon`` runs it, or path mode on a mesh with
-    analytic spheres and planes, next-event estimation over the emissive
-    triangles (``area_mc``) or no lights, and the Lambertian, mirror,
-    transparent and holdout shaders (``W7 E3``, ``W8 E1``-``E3``,
-    ``W9 E1``/``W9 E2``), under the ``while`` or the differentiable ``scan``
-    bounce loop with any ``remat`` policy. The mesh may take the treelet
-    engines or the brute-force engine."""
+    """Why this row is outside the ported slices ([] when it is inside).
+
+    Ported: direct mode with every shader arm, the ``point_w1``,
+    ``directional``, ``directional_n`` and ``area_all`` lights and the four
+    ambient terms, textured planes and stratified jitter; path mode with
+    next-event estimation over the emissive triangles (``area_mc``) or no
+    lights; analytic spheres, planes and triangles and an optional mesh on
+    the treelet engines (``bvh``, or ``bsp`` executed by them) or the
+    brute-force engine; the ``while`` or the differentiable ``scan`` bounce
+    loop with any ``remat`` policy. Still missing: the BSP walk and the
+    ``bvh2``/``bvh8`` engines, path-mode next-event estimation with the sun
+    (``W9 E3``) and the environment map in direct mode."""
     why = []
-    if desc.model is None:
-        why.append("no triangle mesh")
-    if desc.tris:
-        why.append("analytic triangles")
     treelet = cfg.traversal == "bvh" or (
         cfg.traversal == "bsp" and cfg.bsp_execution == "fast")
     if not (treelet or cfg.traversal == "brute"):
         why.append(f"traversal {cfg.traversal!r} ({cfg.bsp_execution})")
-    if desc.texture or cfg.plane_texture:
-        why.append("plane textures")
-    if cfg.subdivs > 1:
-        why.append(f"subdivs {cfg.subdivs}")
+    if cfg.loop not in ("while", "scan"):
+        why.append(f"bounce loop {cfg.loop!r}")
+    if cfg.remat not in ("none", "full", "dots"):
+        why.append(f"remat {cfg.remat!r}")
     if cfg.mode == "direct":
-        if desc.planes or desc.spheres:
-            why.append("analytic planes or spheres in direct mode")
-        if any(k != "directional_n" for k in cfg.lights):
-            why.append(f"lights {cfg.lights}")
-        if cfg.shadows:
-            why.append("shadow rays")
-        if cfg.ambient != "plain_scaled":
-            why.append(f"ambient {cfg.ambient!r}")
         if desc.hdri or cfg.env_light:
             why.append("environment map in direct mode")
-        if set(cfg.possible_shaders) - {SHADER_LAMBERTIAN}:
-            why.append(f"shaders {cfg.possible_shaders}")
+        if set(cfg.lights) - set(DIRECT_LIGHTS):
+            why.append(f"lights {cfg.lights}")
+        if cfg.ambient not in AMBIENTS:
+            why.append(f"ambient {cfg.ambient!r}")
     elif cfg.mode == "path":
         if cfg.lights not in (("none",), ("area_mc",)):
             why.append(f"lights {cfg.lights} (next-event estimation)")
-        if cfg.loop not in ("while", "scan"):
-            why.append(f"bounce loop {cfg.loop!r}")
-        if cfg.remat not in ("none", "full", "dots"):
-            why.append(f"remat {cfg.remat!r}")
-        if set(cfg.possible_shaders) - PATH_SHADERS:
-            why.append(f"shaders {cfg.possible_shaders}")
         if cfg.dielectric not in ("simple", "fresnel", "absorb"):
             why.append(f"dielectric {cfg.dielectric!r}")
     else:
@@ -115,10 +112,28 @@ def unsupported(desc: SceneDescriptor, cfg: SceneConfig) -> list[str]:
     return why
 
 
-def load_environment(path: str, rgbe: bool):
-    """The environment map at ``path``; ``None`` (with a note on stderr)
-    when the file is missing, as in the JAX package: misses then take the
-    background colour. Image loaders are not ported."""
+def scene_config(desc: SceneDescriptor) -> SceneConfig:
+    """The row's configuration as ``build_scene`` returns it before the
+    mesh is loaded: the shader ids it can produce and the leaf bound
+    resolved. Raises ``NotImplementedError`` for a row outside the ported
+    slices."""
+    cfg = dataclasses.replace(
+        desc.cfg,
+        possible_shaders=_possible_shaders(desc),
+        max_leaf=min(desc.cfg.max_leaf, desc.bvh_leaf),
+    )
+    why = unsupported(desc, cfg)
+    if why:
+        raise NotImplementedError(
+            f"scene {desc.name!r} is outside the ported slice: " + "; ".join(why))
+    return cfg
+
+
+def load_image(path: str):
+    """The environment map or plane texture at ``path``; ``None`` (with a
+    note on stderr) when the file is missing, as in the JAX package: misses
+    then take the background colour and planes their base colour. Image
+    loaders are not ported."""
     if not os.path.exists(path):
         print(f"[build] texture '{path}' missing — scene falls back to the "
               "background color (reference lists it in .MISSING_LARGE_BLOBS)",
@@ -139,18 +154,10 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
     """Build the device scene for a descriptor; returns (Scene, SceneConfig).
 
     ``timings``: optional dict that receives per-stage wall seconds
-    (mesh_load / accel_host / upload / device_assembly / total); device
-    work is synchronized before each stage ends.
+    (mesh_load / accel_host / upload / device_assembly for a mesh, and
+    total); device work is synchronized before each stage ends.
     """
-    cfg = dataclasses.replace(
-        desc.cfg,
-        possible_shaders=_possible_shaders(desc),
-        max_leaf=min(desc.cfg.max_leaf, desc.bvh_leaf),
-    )
-    why = unsupported(desc, cfg)
-    if why:
-        raise NotImplementedError(
-            f"scene {desc.name!r} is outside the ported slice: " + "; ".join(why))
+    cfg = scene_config(desc)
     marks: dict[str, float] = {}
     t_start = t0 = time.perf_counter()
 
@@ -162,23 +169,25 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
         marks[name] = t - t0
         t0 = t
 
-    mesh = load_mesh(desc.model, desc.model_scale)
-    mark("mesh_load")
-    if mesh.num_triangles <= BRUTE_MAX_TRIANGLES and cfg.traversal in ("bvh", "bsp"):
-        # A dense sweep over a tiny mesh needs no acceleration structure.
-        cfg = dataclasses.replace(cfg, traversal="brute")
-    host = None
-    if cfg.traversal != "brute":
-        binary = lbvh.build_for_mesh(mesh, max_prims=desc.bvh_leaf, native=True)
-        host = treelet_mod.build_host(binary, T=TREELET_T)
-    mark("accel_host")
-    geom, materials, light_indices = upload_mesh(mesh, device)
-    mark("upload")
-    tb = None if host is None else treelet_mod.from_host(host, geom.vertices, geom.indices)
-    mark("device_assembly")
+    geom = materials = light_indices = tb = None
+    if desc.model is not None:
+        mesh = load_mesh(desc.model, desc.model_scale)
+        mark("mesh_load")
+        if mesh.num_triangles <= BRUTE_MAX_TRIANGLES and cfg.traversal in ("bvh", "bsp"):
+            # A dense sweep over a tiny mesh needs no acceleration structure.
+            cfg = dataclasses.replace(cfg, traversal="brute")
+        host = None
+        if cfg.traversal != "brute":
+            binary = lbvh.build_for_mesh(mesh, max_prims=desc.bvh_leaf, native=True)
+            host = treelet_mod.build_host(binary, T=TREELET_T)
+        mark("accel_host")
+        geom, materials, light_indices = upload_mesh(mesh, device)
+        mark("upload")
+        tb = None if host is None else treelet_mod.from_host(host, geom.vertices, geom.indices)
+        mark("device_assembly")
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
     i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=device)
-    spheres = planes = None
+    spheres = planes = tris = None
     if desc.spheres:
         c, r, sh, bc, ior, ext = zip(*desc.spheres)
         spheres = Spheres(center=f32(c), radius=f32(r), shader=i32(sh), base_color=f32(bc),
@@ -188,17 +197,27 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
         planes = Planes(position=f32(p), normal=f32(nrm), tangent=f32(tg),
                         binormal=f32(bn), shader=i32(sh), base_color=f32(bc),
                         textured=i32([int(t) for t in txd]))
-    env = load_environment(desc.hdri, desc.hdri_rgbe) if desc.hdri else None
+    if desc.tris:
+        v0, v1, v2, sh, bc = zip(*desc.tris)
+        tris = AnalyticTriangles(verts=f32([list(v) for v in zip(v0, v1, v2)]),
+                                 shader=i32(sh), base_color=f32(bc))
+    jitters = None
+    if cfg.mode != "path" and cfg.subdivs > 1:
+        jitters = torch.as_tensor(compute_jitters(1.0 / cfg.height, cfg.subdivs), device=device)
     scene = Scene(
         camera=make_camera(**desc.camera, device=device),
-        uniforms=Uniforms(selection1=desc.selection1, selection2=desc.selection2),
+        uniforms=Uniforms(selection1=desc.selection1, selection2=desc.selection2,
+                          use_texture=tex.TEX_DEFAULT if desc.texture else tex.TEX_NONE),
         geom=geom,
         materials=materials,
         light_indices=light_indices,
         tb=tb,
         planes=planes,
-        env=env,
+        env=load_image(desc.hdri) if desc.hdri else None,
         spheres=spheres,
+        tris=tris,
+        texture=load_image(desc.texture) if desc.texture else None,
+        jitters=jitters,
     )
     if timings is not None:
         marks["total"] = time.perf_counter() - t_start
