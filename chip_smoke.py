@@ -129,7 +129,34 @@ Phases (each raises on failure, so the script exits non-zero):
               finite, no hand kernel or twin ran where none should; and
               32x32 frames meet the JAX package's numbers (``DIRECT_REF``).
 
-B1's ``launches`` count the timed frames and steps of phases 4, 5 and 10.
+11. sun     — ``W9 E3 Teapot`` on the bunny stand-in (``sun_desc``: the
+              teapot is missing and has no stand-in; the seeded environment
+              for its missing JPEG) at its registry 800x450 and depth 50:
+              path mode with the sun's next-event estimation. 1 warm-up and
+              3 timed frames (ms/frame by CUDA events and the host clock),
+              one with spies (bounces, ray segments, shadow rays, B3's
+              closest-hit and any-hit rounds) and one under
+              ``torch.profiler``; B3 against its twin on a real any-hit
+              round. Checks: every frame ran B3 and never its twin, no
+              truncated lane, a finite non-negative accumulator, and 32x32
+              frames of the row and of ``with_lit_plane`` equal on the card
+              and the CPU bit for bit and meet the JAX package's numbers
+              (``SUN_REF``);
+12. cli     — ``tracer_torch.cli.main`` in process on ``Project: Dragon``
+              at 800x450 (B1) with a fresh ``TRACER_SCENE_CACHE``: 8 frames
+              straight (cold cache), 4 with ``--checkpoint`` (warm), then
+              ``--resume`` to 8: the two ``--out-npz`` images bitwise
+              equal, the time to first frame cold and warm with the build's
+              stages, the ``--out`` PNG decoded by the port's reader equal
+              to the display image rounded to 8 bits; ``--interactive`` over
+              a pipe (child process) on ``W1 E6``; ``--sharded`` exits
+              non-zero before any work;
+13. hdr     — ``W9 E2 Bunny`` at 64x64 with ``tests/fixtures/tiny_env.hdr.png``
+              as its environment, read by the build's RGBE loader: two
+              frames, the card's accumulator equal to the CPU's bit for bit.
+
+B1's ``launches`` count the timed frames and steps of phases 4, 5 and 10
+and the CLI's frames of phase 12; B3's those of phases 6, 9 and 11.
 
 Prints one JSON object of per-kernel results on the line before the last,
 and ``{"ok": true, "device": {...}}`` as the last line. Imports nothing of
@@ -248,6 +275,21 @@ CORNELL_GRAD_ZERO = ("geom.normals", "geom.tri_table", "materials.specular",
 CORNELL_GRAD_RTOL = 1e-4
 
 
+# The JAX package's render of W9 E3 Teapot at 32x32 (registry depth 50, the
+# sun's next-event estimation) on the bunny stand-in (``with_standin_mesh``;
+# the teapot is missing) with the seeded environment of ``seeded_env`` (the
+# JPEG is missing) after two progressive steps, as PATH_REF: the row as it
+# is (its holdout plane), and with that plane a grey Lambertian
+# (``with_lit_plane``), where the sun lights the plane and the bunny casts
+# its shadow on it. ``tests/test_torch_sun.py`` recomputes them from JAX.
+SUN_REF = {
+    "row": dict(sum=626.052849235246, sumsq=366.4213899333887, max=0.9628999829292297),
+    "lit plane": dict(sum=1448.4777939936612, sumsq=2540.1077467989094,
+                      max=3.8571970462799072),
+}
+SUN_RTOL = PATH_RTOL
+
+
 def seeded_env(rgbe: bool, seed: int = 0, shape=(32, 64)) -> np.ndarray:
     """An (H, W, 4) float32 environment map of random 8-bit texels from
     numpy with a seed, standing in for the W9 rows' missing HDRIs; RGBE
@@ -278,6 +320,29 @@ def with_standin_mesh(desc, model: str = "dragon.obj"):
     return dataclasses.replace(
         desc, name=f"{desc.name} on {model}", model=f"{REF_RES}/models/{model}",
         camera=dict(DRAGON_CAM, aspect=desc.camera["aspect"]))
+
+
+def with_lit_plane(desc):
+    """``desc`` with its planes made grey Lambertians (shader 0, base colour
+    0.8): on ``W9 E3`` the sun then lights the plane, and the shadow rays
+    from it are blocked where the mesh's shadow falls (the stand-ins'
+    normals point into the mesh, so the mesh itself is never lit by the
+    sun). A test configuration, not a registry row."""
+    planes = tuple((p[0], p[1], p[2], p[3], 0, (0.8, 0.8, 0.8), p[6]) for p in desc.planes)
+    return dataclasses.replace(desc, name=f"{desc.name}, lit plane", planes=planes)
+
+
+def sun_desc(get_scene, lit: bool = False, size=None):
+    """``W9 E3 Teapot`` on the bunny stand-in (the plane lit where ``lit``),
+    from the registry function ``get_scene`` of either package, at
+    ``size`` x ``size`` (the registry's 800x450 where None)."""
+    desc = with_standin_mesh(get_scene("W9 E3 Teapot"), "bunny.obj")
+    if lit:
+        desc = with_lit_plane(desc)
+    if size is not None:
+        desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=size,
+                                                                 height=size))
+    return desc
 
 
 def path_stats(accum) -> dict:
@@ -334,17 +399,25 @@ def profiled_device_ms(fn, reps: int, key: str) -> float:
     """Mean device milliseconds per call of ``fn`` from ``torch.profiler``
     over ``reps`` calls: every kernel and memset the calls ran, without the
     host's enqueue, which sets the CUDA-event time of back-to-back calls of
-    a short kernel. Raises unless a kernel whose name holds ``key`` ran."""
+    a short kernel. A trace that holds no device event at all is taken
+    again, up to three times: once on the card the trace of the brute-force
+    any-hit query came back without the kernel it ran. Raises unless a
+    kernel whose name holds ``key`` ran."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev:
+            break
     if not any(key in e.name for e in dev):
-        raise AssertionError(f"the profiler saw no kernel named like {key!r}")
+        names = sorted({e.name for e in dev})[:5]
+        raise AssertionError(f"the profiler saw no kernel named like {key!r} "
+                             f"({len(dev)} device events, e.g. {names})")
     return sum(e.time_range.end - e.time_range.start for e in dev) / 1e3 / reps
 
 
@@ -765,6 +838,7 @@ def with_seeded_env(scene, desc, device):
 def instrumented_step(scene, cfg, state) -> dict:
     """One progressive step with spies on the path-mode layers: bounces,
     ray segments (lanes with a non-empty window at each bounce's trace),
+    shadow rays (lanes with a non-empty window at each ``trace_occluded``),
     B3 rounds per bounce with their arguments, the CUDA-event span of each
     phase A call and each B3 call, phase A's host time (it ends on a host
     read of its loop condition, so the host clock brackets its device work
@@ -773,10 +847,11 @@ def instrumented_step(scene, cfg, state) -> dict:
     from tracer_torch.accel import packet
     from tracer_torch.render import integrator, progressive
 
-    rec = dict(bounces=0, segments=0, rounds=[], bad=0, any_hit_rounds=0, phase_a_host_ms=0.0)
+    rec = dict(bounces=0, segments=0, rounds=[], bad=0, any_hit_rounds=0, phase_a_host_ms=0.0,
+               shadow=0)
     ev_a, ev_b = [], []
     orig = (integrator.trace_closest, packet._phase_a_chunk, packet._dispatch_hits,
-            integrator._paint_bad)
+            integrator._paint_bad, integrator.trace_occluded)
 
     def timed(fn, events):
         def run(*args, **kw):
@@ -812,8 +887,13 @@ def instrumented_step(scene, cfg, state) -> dict:
         rec["bad"] += int(bad.sum())
         return orig[3](result, bad)
 
+    def occluded(sc, c, rays):
+        rec["shadow"] += int((rays.tmax > rays.tmin).sum())
+        return orig[4](sc, c, rays)
+
     integrator.trace_closest, packet._phase_a_chunk = trace, phase_a_host
     packet._dispatch_hits, integrator._paint_bad = dispatch, paint
+    integrator.trace_occluded = occluded
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -822,7 +902,7 @@ def instrumented_step(scene, cfg, state) -> dict:
         rec["frame_host_ms"] = (time.perf_counter() - t) * 1e3
     finally:
         (integrator.trace_closest, packet._phase_a_chunk, packet._dispatch_hits,
-         integrator._paint_bad) = orig
+         integrator._paint_bad, integrator.trace_occluded) = orig
     rec["phase_a_ms"] = sum(s.elapsed_time(e) for s, e in ev_a)
     rec["b3_ms"] = [s.elapsed_time(e) for s, e in ev_b]
     return rec
@@ -1389,6 +1469,234 @@ def pgrad_phase(dev, card: str, kernels) -> dict:
     return dict(b2_launches=b2_launches, b3_launches=b3_launches, b2_err=err)
 
 
+def sun_phase(dev, card: str, kernels) -> dict:
+    """Phase 11: ``W9 E3`` on the bunny stand-in (see the module
+    docstring). Raises on any failed check; returns B3's launches in the
+    timed frames and its largest error against the twin."""
+    from tracer_torch.kernels import treelet_hits
+    from tracer_torch.render import progressive
+    from tracer_torch.scenes.build import build_scene
+    from tracer_torch.scenes.registry import get_scene
+
+    for m in kernels:
+        m.KERNEL_LAUNCHES = m.REFERENCE_CALLS = 0
+    desc = sun_desc(get_scene)
+    t0 = time.perf_counter()
+    scene, cfg = build_scene(desc, dev)
+    scene = with_seeded_env(scene, desc, dev)
+    log(f"[sun] {desc.name} {cfg.width}x{cfg.height}, max_depth {cfg.max_depth}, lights "
+        f"{cfg.lights}: {scene.geom.indices.shape[0]} triangles, {scene.tb.NT} treelets, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    if (cfg.width, cfg.height, cfg.max_depth) != (800, 450, 50) or cfg.mode != "path" \
+            or cfg.lights != ("directional",) or scene.geom.indices.shape[0] != 69_564:
+        raise AssertionError("the W9 E3 frame is not at full size")
+    state = progressive.init_state(cfg, dev)
+    progressive.step(scene, cfg, state)
+    per_frame = [treelet_hits.KERNEL_LAUNCHES]
+    frames = 3
+
+    def frame():
+        progressive.step(scene, cfg, state)
+        per_frame.append(treelet_hits.KERNEL_LAUNCHES)
+
+    ms, host_ms, _ = timed_steps(frame, frames)
+    launches, ref = treelet_hits.KERNEL_LAUNCHES, treelet_hits.REFERENCE_CALLS
+    if min(np.diff([0] + per_frame)) < 1 or ref or kernels[0].KERNEL_LAUNCHES \
+            or kernels[1].KERNEL_LAUNCHES:
+        raise AssertionError(f"a W9 E3 frame did not run on B3 alone (launches {per_frame}, "
+                             f"twin calls {ref})")
+    rec = instrumented_step(scene, cfg, state)
+    n_any = rec["any_hit_rounds"]
+    n_closest = len(rec["rounds"]) - n_any
+    log(f"[sun] {frames} frames: {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms/frame (host "
+        f"clock), primary {cfg.width * cfg.height / (ms * 1e3):.3f} Mpath/s; B3 launches "
+        f"{launches} over {frames + 1} frames (cumulative {per_frame}), twin calls {ref}; "
+        f"instrumented frame ({rec['frame_host_ms']:.3f} ms, host clock): {rec['bounces']} "
+        f"bounces, {rec['segments']} ray segments, {rec['shadow']} shadow rays, B3 rounds "
+        f"{n_closest} closest-hit and {n_any} any-hit, phase A {rec['phase_a_host_ms']:.3f} ms "
+        f"host clock, B3 {sum(rec['b3_ms']):.3f} ms in all; truncated lanes {rec['bad']}; {card}")
+    acc = state.accum
+    if rec["bad"] or not n_closest or not n_any or not rec["shadow"]:
+        raise AssertionError("W9 E3 truncated a lane, or ran no closest-hit or any-hit round")
+    if not bool(torch.isfinite(acc).all()) or not bool((acc >= 0).all()) \
+            or not float(acc.max()) > 0 or state.iteration != frames + 2:
+        raise AssertionError("the W9 E3 accumulator is not finite, non-negative and nonzero")
+    # B3 against its twin on the first any-hit round of bounce 1 (the sun's
+    # shadow rays and the holdout's probe).
+    (_, real), = [r for r in rec["rounds"] if r[1][-1]][:1]
+    args = tuple(real[i] for i in (0, 1, 3, 4, 5, 6, 7, 8))
+    err = compare("B3 W9 E3 any-hit", treelet_hits.hits(*args, True),
+                  treelet_hits.hits_reference(*args, True))
+    prof = profile_step(lambda: progressive.step(scene, cfg, state),
+                        {"b3_ms": "treelet_hits_kernel"})
+    if not prof:
+        raise AssertionError("the profiler recorded no device time in the W9 E3 frame")
+    log(f"[sun] profiled frame: {prof['kernels']} kernels, device busy {prof['busy_ms']:.3f} ms "
+        f"of a {prof['span_ms']:.3f} ms trace (idle {prof['idle']:.1%}), B3 "
+        f"{prof['b3_ms']:.3f} ms; {card}")
+
+    # 32x32 frames, both configurations: the card equals the CPU bit for bit
+    # and meets the JAX package's numbers.
+    for key, lit in (("row", False), ("lit plane", True)):
+        accs = []
+        for d in (dev, "cpu"):
+            sd = sun_desc(get_scene, lit, 32)
+            sscene, scfg = build_scene(sd, d)
+            sst = progressive.render_progressive(with_seeded_env(sscene, sd, d), scfg, 2)
+            accs.append(sst.accum.cpu())
+        stats = path_stats(accs[0].numpy())
+        log(f"[sun 32x32 {key}] {stats} (JAX: {SUN_REF[key]})")
+        if not torch.equal(accs[0].view(torch.int32), accs[1].view(torch.int32)):
+            raise AssertionError(f"the 32x32 W9 E3 {key} frame on the card differs from the CPU's")
+        bad = path_errors(stats, SUN_RTOL, SUN_REF[key])
+        if bad:
+            raise AssertionError(f"the 32x32 W9 E3 {key} frame disagrees with the JAX package: "
+                                 + "; ".join(bad))
+    log("[sun] 32x32 frames: the card equals the CPU bit for bit and meets SUN_REF")
+    return dict(b3_launches=launches, b3_err=err)
+
+
+def cli_phase(dev, card: str, kernels) -> dict:
+    """Phase 12: the CLI in process on ``Project: Dragon`` (see the module
+    docstring). Raises on any failed check; returns B1's launches in the
+    CLI's runs."""
+    import contextlib
+    import io as stdio
+    import shutil
+
+    from tracer_torch import cli
+    from tracer_torch import io as tio
+    from tracer_torch.render import integrator, progressive
+    from tracer_torch.scenes import build as build_mod
+    from tracer_torch.scenes.registry import get_scene
+
+    out = Path(__file__).resolve().parent / "build" / "tracer_torch" / "smoke-cli"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    os.environ["TRACER_SCENE_CACHE"] = str(out / "scene-cache")
+    step, built = progressive.step, build_mod.build_scene
+    for m in kernels:
+        m.KERNEL_LAUNCHES = m.REFERENCE_CALLS = 0
+
+    def run(name, argv):
+        """``cli.main(argv)`` with its stderr echoed; returns the seconds
+        from the call to the end of its first frame and the build's
+        stages."""
+        first, stages = [], {}
+
+        def timed_step(*a):
+            r = step(*a)
+            if not first:
+                torch.cuda.synchronize()
+                first.append(time.perf_counter())
+            return r
+
+        def timed_build(*a, **kw):
+            r = built(*a, **kw)
+            stages.update(kw.get("timings") or {})
+            return r
+
+        progressive.step, build_mod.build_scene = timed_step, timed_build
+        err = stdio.StringIO()
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(argv)
+        finally:
+            progressive.step, build_mod.build_scene = step, built
+        for line in err.getvalue().splitlines():
+            log(f"  [{name}] {line}")
+        if rc != 0:
+            raise AssertionError(f"the CLI's {name} run exited {rc}")
+        return (first[0] - t0 if first else None), stages
+
+    dragon = ["--scene", "Project: Dragon", "--stats-every", "0"]
+    a_npz, b_npz, ck, png = (str(out / n) for n in ("a.npz", "b.npz", "ck.npz", "a.png"))
+    cold, cold_st = run("straight, cold cache", dragon + ["--samples", "8", "--out-npz", a_npz,
+                                                          "--out", png])
+    warm, warm_st = run("checkpoint, warm cache", dragon + ["--samples", "4", "--checkpoint", ck])
+    run("resume", dragon + ["--samples", "8", "--checkpoint", ck, "--resume", "--out-npz", b_npz])
+    launches, ref = kernels[0].KERNEL_LAUNCHES, sum(m.REFERENCE_CALLS for m in kernels)
+    fmt = lambda st: ", ".join(f"{k}={v:.3f}s" for k, v in st.items())
+    log(f"[cli] Project: Dragon 800x450: time to first frame {cold:.3f} s with a cold scene "
+        f"cache (build {fmt(cold_st)}), {warm:.3f} s warm (build {fmt(warm_st)}); "
+        f"B1 launches {launches} over 16 frames, twin calls {ref}; {card}")
+    if launches < 16 or ref:
+        raise AssertionError("the CLI's dragon frames did not run on B1 alone")
+    with np.load(a_npz) as a, np.load(b_npz) as b:
+        if int(a["iteration"]) != 8 or int(b["iteration"]) != 8 \
+                or a["image"].shape != (450, 800, 3) \
+                or not np.array_equal(a["image"].view(np.uint32), b["image"].view(np.uint32)):
+            raise AssertionError("checkpoint and resume differ from the straight run")
+        lin = a["image"]
+    cfg = build_mod.scene_config(get_scene("Project: Dragon"))
+    disp = integrator.to_display(torch.as_tensor(lin.reshape(-1, 3), device=dev), cfg)
+    want = np.clip(disp.cpu().numpy().reshape(450, 800, 3) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    got = tio.read_png(png)
+    if not np.array_equal(got[..., :3], want) or not (got[..., 3] == 255).all():
+        raise AssertionError("the --out PNG does not decode to the rounded display image")
+    log("[cli] resumed 4 + 4 equals the straight 8 bit for bit; the --out PNG decodes to the "
+        "rounded display image")
+
+    # --interactive over a pipe, in a child process.
+    repl_png = out / "repl.png"
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "tracer_torch.cli", "--scene", "W1 E6", "--interactive"],
+        input=f"c 2.0\nm1 5\nr 2\nsave {repl_png}\nq\n", capture_output=True, text=True,
+        timeout=300, env=env, cwd=Path(__file__).resolve().parent)
+    for line in child.stderr.splitlines():
+        log(f"  [interactive] {line}")
+    if child.returncode or "iteration=3" not in child.stderr \
+            or tio.read_png(str(repl_png)).shape != (512, 512, 4):
+        raise AssertionError("the interactive CLI failed")
+    log(f"[cli] --interactive over a pipe: W1 E6, c 2.0, m1 5, r 2, save, q in "
+        f"{time.perf_counter() - t0:.2f} s (child process)")
+
+    # --sharded stops before any work.
+    calls = []
+    build_mod.build_scene = lambda *a, **k: calls.append(a)
+    err = stdio.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(dragon + ["--sharded"])
+    finally:
+        build_mod.build_scene = built
+    if rc == 0 or calls or kernels[0].KERNEL_LAUNCHES != launches:
+        raise AssertionError("--sharded did not stop before any work")
+    log(f"[cli] --sharded: exit {rc} before any work: {err.getvalue().strip()}")
+    del os.environ["TRACER_SCENE_CACHE"]
+    return dict(b1_launches=launches)
+
+
+def hdr_phase(dev, card: str) -> None:
+    """Phase 13: ``W9 E2 Bunny`` at 64x64 with ``tests/fixtures/tiny_env.hdr.png``
+    as its environment, read by the build's loader (``load_rgbe_png``):
+    the card's accumulator equals the CPU's bit for bit."""
+    from tracer_torch.render import progressive
+    from tracer_torch.render import texture as tex
+    from tracer_torch.scenes.build import build_scene
+    from tracer_torch.scenes.registry import get_scene
+
+    fixture = str(FIXTURES / "tiny_env.hdr.png")
+    desc = get_scene("W9 E2 Bunny")
+    desc = dataclasses.replace(desc, hdri=fixture, cfg=dataclasses.replace(
+        desc.cfg, width=64, height=64))
+    accs = []
+    for d in (dev, "cpu"):
+        scene, cfg = build_scene(desc, d)
+        if scene.env is None or scene.env.kind != tex.ENV_RGBE or not torch.equal(
+                scene.env.data.cpu(), tex.load_rgbe_png(fixture, "cpu").data):
+            raise AssertionError("the W9 E2 build did not load the RGBE fixture")
+        accs.append(progressive.render_progressive(scene, cfg, 2).accum.cpu())
+    if not torch.equal(accs[0].view(torch.int32), accs[1].view(torch.int32)):
+        raise AssertionError("the W9 E2 frame with the fixture environment differs on the card")
+    log(f"[hdr] W9 E2 Bunny 64x64 with {FIXTURES.name}/tiny_env.hdr.png "
+        f"({tuple(scene.env.data.shape)} RGBE): 2 frames, the card equals the CPU bit for bit, "
+        f"{path_stats(accs[0].numpy())}; {card}")
+
+
 def profile_step(step, keys: dict) -> dict:
     """One call of ``step`` under ``torch.profiler``: kernels, device busy
     time (the union of the device intervals), the traced span (first to
@@ -1925,12 +2233,23 @@ def main() -> int:
     dr = direct_phase(dev, card, kernels, (scene, cfg, desc, rays, ids_k))
     max_err = max(max_err, dr["b1_err"])
 
+    # 11. The sun: W9 E3 on the bunny stand-in through B3 (closest and any-hit).
+    sun = sun_phase(dev, card, kernels)
+    b3_err = max(b3_err, sun["b3_err"])
+
+    # 12. The CLI on the dragon (B1), checkpoint and resume, the REPL.
+    cl = cli_phase(dev, card, kernels)
+
+    # 13. The RGBE loader on W9 E2.
+    hdr_phase(dev, card)
+
     log(json.dumps({"kernels": [{
         "name": "super_hits.hits2",
         "route": "cuda",
         "source": "tracer_torch/csrc/super_hits.cu",
         "replaces": "tracer/kernels/super_hits.py:262",
-        "launches": launches + g_launches["super_hits"] + dr["b1_launches"],
+        "launches": launches + g_launches["super_hits"] + dr["b1_launches"]
+        + cl["b1_launches"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1956,7 +2275,7 @@ def main() -> int:
         "route": "cuda",
         "source": "tracer_torch/csrc/treelet_hits.cu",
         "replaces": "tracer/kernels/treelet_hits.py:160",
-        "launches": p_launches + e_launches + pg["b3_launches"],
+        "launches": p_launches + e_launches + pg["b3_launches"] + sun["b3_launches"],
         "max_abs_err": b3_err,
         "ms": b3_ms,
         "plain_ms": b3_plain_ms,

@@ -21,7 +21,7 @@ import pytest
 import torch
 from _share_cores import share_cores
 
-from chip_smoke import with_fixture_model
+from chip_smoke import sun_desc, with_fixture_model
 from tracer.accel import lbvh as jax_lbvh
 from tracer.accel import treelet as jax_treelet
 from tracer.geometry import obj as jax_obj
@@ -185,29 +185,32 @@ def _outside(name, **cfg_kw):
 
 
 @pytest.mark.parametrize("case", [
-    ("W9 E3 Teapot", {}, "next-event estimation"),
+    ("W9 E1 Bunny", dict(traversal="bsp", bsp_execution="walk"), "traversal 'bsp' \\(walk\\)"),
     ("W6 E1 Bunny", dict(bsp_execution="walk"), "traversal 'bsp' \\(walk\\)"),
     ("Project: Bunny", dict(traversal="bvh2"), "traversal 'bvh2'"),
-    ("W1 E6", dict(env_light=True), "environment map in direct mode"),
-], ids=["W9 E3 Teapot", "bsp walk", "bvh2", "direct env map"])
+    ("Project: Dragon", dict(traversal="bvh8"), "traversal 'bvh8'"),
+], ids=["path bsp walk", "bsp walk", "bvh2", "bvh8"])
 def test_build_scene_rejects_rows_outside_slice(case):
-    """What is still missing raises before any work: path-mode next-event
-    estimation with the sun (W9 E3), the BSP walk and the bvh2 engine, and
-    the environment map in direct mode."""
+    """What is still missing raises before any work: the BSP walk (in
+    either mode) and the bvh2 and bvh8 engines."""
     name, cfg_kw, why = case
     with pytest.raises(NotImplementedError, match=f"outside the ported slice: .*{why}"):
         build_scene(_outside(name, **cfg_kw), "cpu")
 
 
-@pytest.mark.parametrize("name", ["W1 E6", "W6 E2 Cornell Box", "W6 E1 Dragon"])
+@pytest.mark.parametrize("name", ["W1 E6", "W6 E2 Cornell Box", "W6 E1 Dragon",
+                                  "W1 E6 env map"])
 def test_build_scene_admits_direct_rows(name):
     """Rows the earlier slices refused are admitted now: analytic
     primitives without a mesh, the area lights and the ``plain`` ambient,
-    and ``mix_ka`` on the dragon stand-in (its configuration only; the
-    dragon's build runs in ``chip_smoke.py``)."""
-    desc = registry.get_scene(name)
+    ``mix_ka`` on the dragon stand-in (its configuration only; the
+    dragon's build runs in ``chip_smoke.py``), and the environment map in
+    direct mode."""
+    desc = registry.get_scene(name.removesuffix(" env map"))
     if "Cornell" in name:
         desc = with_fixture_model(desc)
+    if name.endswith("env map"):
+        desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, env_light=True))
     cfg = build.scene_config(desc)
     assert build.unsupported(desc, cfg) == [] and cfg.mode == "direct"
     if name == "W6 E1 Dragon":
@@ -216,8 +219,25 @@ def test_build_scene_admits_direct_rows(name):
     small = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=8, height=8))
     scene, cfg = build_scene(small, "cpu")
     assert cfg.traversal == "brute" and scene.tb is None
-    assert (scene.geom is None) == (name == "W1 E6")
-    assert (scene.tris is not None) == (name == "W1 E6")
+    assert (scene.geom is None) == name.startswith("W1 E6")
+    assert (scene.tris is not None) == name.startswith("W1 E6")
+    assert cfg.env_light == name.endswith("env map")
+
+
+@pytest.mark.parametrize("lit", [False, True], ids=["row", "lit plane"])
+def test_build_scene_admits_the_sun_in_path_mode(lit, capfd):
+    """``W9 E3 Teapot`` (path mode, next-event estimation with the sun) is
+    admitted; its teapot is missing and has no stand-in, so it builds on the
+    bunny stand-in (``chip_smoke.sun_desc``) and its missing JPEG leaves
+    the environment out, with the JAX package's note."""
+    desc = registry.get_scene("W9 E3 Teapot")
+    assert build.unsupported(desc, build.scene_config(desc)) == []
+    scene, cfg = build_scene(sun_desc(registry.get_scene, lit, 8), "cpu")
+    assert "luxo_pxr_campus.jpg' missing" in capfd.readouterr().err
+    assert (cfg.mode, cfg.lights, cfg.max_depth, cfg.env_light) == (
+        "path", ("directional",), 50, True)
+    assert scene.tb is not None and scene.env is None
+    assert scene.planes.shader.tolist() == [0 if lit else 8]
 
 
 def test_build_scene_raises_for_a_missing_model_without_stand_in():
@@ -247,3 +267,24 @@ def test_cuda_device_never_falls_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tracer_torch.cuda_device()
+
+
+def test_port_imports_no_jax_tracer_or_pil():
+    """No module of the port, nor ``chip_smoke.py``, imports ``jax``, the
+    JAX package or PIL: the card's machine has none of them."""
+    import ast
+    from pathlib import Path
+
+    root = Path(tracer_torch.__file__).resolve().parent
+    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    assert len(files) > 30
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "tracer", "PIL"), (path, name)

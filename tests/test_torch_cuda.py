@@ -32,6 +32,11 @@ Tolerances:
   stratified jitter, the Cornell box's area lights, the bunny through B1 in
   both modes): bit for bit, for the same reasons; Phong's power is taken
   in float64 and rounded.
+* The sun's frames (``W9 E3`` on the bunny stand-in, both
+  configurations of ``tests/test_torch_sun.py``), ``W9 E2`` under the RGBE
+  fixture environment read by the port's PNG decoder, and a checkpoint
+  written on the card and resumed on the card and on the CPU: bit for bit,
+  for the same reasons.
 * The gradient (the dragon's single bounce, and the path gradients of W8
   E3 at 64x64 and W9 E1 at 32x32): two card runs bit for bit. Card against
   CPU at rtol 1e-4 with an atol of 1e-5 of each leaf's largest magnitude,
@@ -48,9 +53,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (brute_case, lane_tiles, narrow_quarters, scatter_streams, seeded_texture,
-                        super_lanes, synthetic, synthetic_tiles, with_fixture_model,
-                        with_seeded_env, with_standin_mesh)
+from chip_smoke import (FIXTURES, brute_case, lane_tiles, narrow_quarters, scatter_streams,
+                        seeded_texture, sun_desc, super_lanes, synthetic, synthetic_tiles,
+                        with_fixture_model, with_seeded_env, with_standin_mesh)
 from tracer_torch import convert
 from tracer_torch.accel import flat, lbvh, treelet
 from tracer_torch.diff import grad as G
@@ -527,3 +532,65 @@ def test_direct_frames_on_card_match_cpu(cuda, key):
         assert after[0][0] >= counts[0][0] + 2 and after[0][1] == counts[0][1]
         assert after[1:] == counts[1:]
         assert any(modes) == cfg.shadows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lit", [False, True], ids=["row", "lit plane"])
+def test_sun_frames_on_card_match_cpu(cuda, lit):
+    """``W9 E3`` on the bunny stand-in, two steps at 32x32: the card's
+    accumulator equals the CPU's, and the card ran B3 in closest-hit and
+    any-hit mode (the sun's shadow rays), never its twin."""
+    desc = sun_desc(get_scene, lit, 32)
+    accs, modes = {}, []
+    hits = treelet_hits.hits
+    treelet_hits.hits = lambda *a, **k: modes.append(bool(a[-1])) or hits(*a, **k)
+    try:
+        for dev in ("cpu", cuda):
+            scene, cfg = build_scene(desc, dev)
+            launches, calls = treelet_hits.KERNEL_LAUNCHES, treelet_hits.REFERENCE_CALLS
+            modes.clear()
+            accs[str(dev)] = progressive.render_progressive(
+                with_seeded_env(scene, desc, dev), cfg, 2).accum
+    finally:
+        treelet_hits.hits = hits
+    assert treelet_hits.KERNEL_LAUNCHES >= launches + 4 and treelet_hits.REFERENCE_CALLS == calls
+    assert set(modes) == {False, True}
+    assert _bits_equal(accs["cpu"], accs[str(cuda)])
+    assert float(accs["cpu"].max()) > 0
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_card(cuda, tmp_path):
+    """``W9 E1 Bunny`` at 32x32: 3 steps straight on the card equal 2 steps
+    checkpointed on the card and resumed to 3, on the card and on the CPU."""
+    desc = get_scene("W9 E1 Bunny")
+    desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=32, height=32))
+    scenes = {}
+    for dev in ("cpu", cuda):
+        scene, cfg = build_scene(desc, dev)
+        scenes[str(dev)] = with_seeded_env(scene, desc, dev)
+    card = scenes[str(cuda)]
+    straight = progressive.render_progressive(card, cfg, 3)
+    ck = str(tmp_path / "ck.npz")
+    progressive.render_progressive(card, cfg, 2, checkpoint_path=ck, checkpoint_every=2)
+    for dev in (cuda, "cpu"):
+        st = progressive.load_checkpoint(ck, cfg, dev)
+        assert st.iteration == 2 and st.accum.device.type == torch.device(dev).type
+        st = progressive.render_progressive(scenes[str(dev)], cfg, 3, state=st)
+        assert _bits_equal(st.accum, straight.accum) and _bits_equal(st.seed_t, straight.seed_t)
+
+
+@pytest.mark.cuda
+def test_rgbe_fixture_environment_on_card_matches_cpu(cuda):
+    """``W9 E2 Bunny`` at 32x32 with ``tests/fixtures/tiny_env.hdr.png`` as
+    its environment, read by the build (``load_rgbe_png``): two steps equal
+    on the card and on the CPU."""
+    desc = get_scene("W9 E2 Bunny")
+    desc = dataclasses.replace(desc, hdri=str(FIXTURES / "tiny_env.hdr.png"),
+                               cfg=dataclasses.replace(desc.cfg, width=32, height=32))
+    accs = {}
+    for dev in ("cpu", cuda):
+        scene, cfg = build_scene(desc, dev)
+        assert scene.env is not None and scene.env.kind == tex.ENV_RGBE
+        accs[str(dev)] = progressive.render_progressive(scene, cfg, 2).accum
+    assert _bits_equal(accs["cpu"], accs[str(cuda)])

@@ -246,13 +246,14 @@ def test_embedded_jax_constants(jax_side):
 
 
 def test_grad_scene_needs_single_bounce(port_side):
-    """Path-mode gradients are ported; a configuration that the port still
-    lacks raises: path-mode next-event estimation with the sun (the
-    ``directional`` light of ``W9 E3``)."""
+    """Path-mode gradients are ported, the sun's next-event estimation too
+    (``tests/test_torch_sun.py`` holds it against the JAX package); a
+    configuration that the port still does not differentiate raises before
+    any work: direct mode with shadow rays (W5 E3's ``directional`` light)."""
     scene, cfg = port_side[0], port_side[1]
-    sun = dataclasses.replace(cfg, mode="path", lights=("directional",))
-    with pytest.raises(NotImplementedError, match="sun"):
-        G.grad_scene(scene, sun, torch.zeros((W * H, 3)))
+    shadowed = dataclasses.replace(cfg, lights=("directional",), shadows=True)
+    with pytest.raises(NotImplementedError, match="shadow rays"):
+        G.grad_scene(scene, shadowed, torch.zeros((W * H, 3)))
 
 
 if __name__ == "__main__":

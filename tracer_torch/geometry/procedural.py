@@ -16,6 +16,11 @@ import numpy as np
 
 from tracer_torch.geometry.obj import MaterialData, MeshData
 
+# Bump when any stand-in generator's output changes: the disk mesh cache
+# keys on this (tracer_torch.scenes.cache._mesh_key) to invalidate stale
+# entries.
+STANDIN_V = 1
+
 
 def uv_sphere(n_lat: int, n_lon: int, radius: float, center) -> MeshData:
     """Lat-long sphere with smooth normals; 2 * n_lat * n_lon triangles."""

@@ -604,15 +604,15 @@ def _shade_transmit_direct(rays, hit, cfg):
 
 def _shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state):
     """w7e3/w8e3 path-traced Lambertian (``w8e3.wgsl:455-509``): one-sample
-    next-event estimation over the emissive triangles (``area_mc``) with a
-    shadow ray, emission gating, then a cosine-hemisphere continuation under
+    next-event estimation over the emissive triangles (``area_mc``), or
+    against the sun (``directional``, ``w9e3.wgsl:451-477``), with a shadow
+    ray, emission gating, then a cosine-hemisphere continuation under
     Russian roulette. The draws come in the JAX package's order: the light
-    slot, the two barycentric draws, the roulette draw, the warp's two.
-    Returns (color, new_rays, cont, factor', emit', state', converged)."""
+    slot and the two barycentric draws (the sun draws none), the roulette
+    draw, the warp's two. Returns (color, new_rays, cont, factor', emit',
+    state', converged)."""
     n_lanes = hit.t.shape[0]
     dev = hit.t.device
-    if "directional" in cfg.lights:
-        raise NotImplementedError("next-event estimation with the sun is not ported")
     brdf = vec.div(_plane_albedo(scene, cfg, hit), PI)
     nrm = hit.normal
     conv = torch.ones(n_lanes, dtype=torch.bool, device=dev)
@@ -630,6 +630,22 @@ def _shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state):
         blocked, c1 = trace_occluded(scene, cfg, sray)
         conv = conv & c1
         contrib = brdf * vec.saturate(vec.dot(nrm, w_i))[..., None] * l_i * float(L)
+        if cfg.diffuse_factor:
+            contrib = contrib * factor
+        diffuse = vec.where(~blocked, contrib, 0.0)
+    elif "directional" in cfg.lights:
+        # The sun: a shadow ray from the hit point, with no normal offset, to
+        # just short of 999999 (w9e3.wgsl:451-477).
+        l_i, w_i, _ = _sample_directional(cfg, n_lanes, dev)
+        sray = Rays(
+            o=hit.position,
+            d=w_i,
+            tmin=torch.full((n_lanes,), cfg.eta, dtype=torch.float32, device=dev),
+            tmax=torch.full((n_lanes,), 999999.0 - cfg.eta, dtype=torch.float32, device=dev),
+        )
+        blocked, c1 = trace_occluded(scene, cfg, sray)
+        conv = conv & c1
+        contrib = brdf * vec.saturate(vec.dot(nrm, w_i))[..., None] * l_i
         if cfg.diffuse_factor:
             contrib = contrib * factor
         diffuse = vec.where(~blocked, contrib, 0.0)
@@ -880,7 +896,11 @@ def bounce_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0=None,
     hit = trace_closest(scene, cfg, rays0, seed_t=seed_t)
     bad = ~hit.converged
     miss = ~hit.valid
-    bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev).expand(n, 3)
+    if cfg.env_light and scene.env is not None:
+        # The loop's miss colour at throughput one (_bounce).
+        bg = tex.environment_map(scene.env, vec.normalize(rays0.d, eps=1e-24))
+    else:
+        bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev).expand(n, 3)
     result = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     result = result + vec.where(miss, bg, 0.0)
     live = hit.valid

@@ -7,7 +7,9 @@ textures are sampled by the sampler mode of the ``use_texture`` uniform
 (``TEX_*``, the UI enum ``TextureUse``, ``command.rs:50-55``); the lat-long
 lookup is ``environment_map`` (``w9e2.wgsl:234-246``). atan2, acos and exp2
 are taken in float64 and rounded, so the CPU and the card sample the same
-texels with the same weights. Image loaders are not ported.
+texels with the same weights. The loaders read PNG through
+``tracer_torch.io.read_png`` (no PIL on the card's machine) and Radiance
+``.hdr`` files in NumPy; JPEG has no decoder here and raises.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from tracer_torch import io
 from tracer_torch.math import vec
 
 # TextureUse ids (command.rs:50-55)
@@ -34,6 +38,81 @@ ENV_RGBE = 2  # rgb * 2^(a*255 - 128)  (w9e2.wgsl:242-245)
 class TextureBuf:
     data: torch.Tensor  # (H, W, 4) f32 in [0, 1] (RGBE maps keep the raw alpha)
     kind: int = ENV_LDR
+
+
+def load_image(path: str, device) -> TextureBuf:
+    """Load a PNG as an Rgba8Unorm-equivalent float texture: (H, W, 4)
+    float32, the RGBA bytes over 255, as PIL's ``convert("RGBA")`` gives
+    them. Other formats (JPEG) raise ``NotImplementedError``."""
+    if not path.lower().endswith(".png"):
+        raise NotImplementedError(
+            f"{path}: only PNG images can be decoded (no JPEG decoder is ported)")
+    arr = io.read_png(path).astype(np.float32) / 255.0
+    return TextureBuf(data=torch.as_tensor(arr, device=device), kind=ENV_LDR)
+
+
+def load_rgbe_png(path: str, device) -> TextureBuf:
+    """Load an ``.hdr.png`` whose alpha stores the shared RGBE exponent."""
+    arr = io.read_png(path).astype(np.float32) / 255.0
+    return TextureBuf(data=torch.as_tensor(arr, device=device), kind=ENV_RGBE)
+
+
+def _read_radiance_rgbe(path: str) -> np.ndarray:
+    """Parse a Radiance ``.hdr`` file to raw (H, W, 4) uint8 RGBE: both
+    adaptive-RLE scanlines (the 0x02 0x02 marker format) and flat ones. The
+    RGBE bytes are what the reference's ``.hdr.png`` stores in its channels
+    (``w9e2.wgsl:242-245``)."""
+    with open(path, "rb") as f:
+        magic = f.readline()
+        if not magic.startswith(b"#?"):
+            raise ValueError(f"{path}: not a Radiance file")
+        while True:
+            line = f.readline()
+            if line in (b"\n", b"\r\n", b""):
+                break
+        res = f.readline().split()
+        if len(res) != 4 or res[0] != b"-Y" or res[2] != b"+X":
+            raise ValueError(f"{path}: unsupported orientation {res!r}")
+        h, w = int(res[1]), int(res[3])
+        data = np.frombuffer(f.read(), np.uint8)
+
+    out = np.zeros((h, w, 4), np.uint8)
+    pos = 0
+    for y in range(h):
+        if (
+            w >= 8
+            and w < 32768
+            and data[pos] == 2
+            and data[pos + 1] == 2
+            and (int(data[pos + 2]) << 8 | int(data[pos + 3])) == w
+        ):
+            pos += 4
+            for c in range(4):
+                x = 0
+                while x < w:
+                    n = int(data[pos])
+                    pos += 1
+                    if n > 128:  # run
+                        out[y, x : x + n - 128, c] = data[pos]
+                        pos += 1
+                        x += n - 128
+                    else:  # literal
+                        out[y, x : x + n, c] = data[pos : pos + n]
+                        pos += n
+                        x += n
+        else:  # flat scanline
+            row = data[pos : pos + 4 * w].reshape(w, 4)
+            out[y] = row
+            pos += 4 * w
+    return out
+
+
+def load_radiance_hdr(path: str, device) -> TextureBuf:
+    """Load a Radiance ``.hdr`` file into RGBE form (decoded at sample time
+    like the reference's ``.hdr.png``: rgb * 2^(a * 255 - 128))."""
+    rgbe = _read_radiance_rgbe(path)
+    return TextureBuf(data=torch.as_tensor(rgbe.astype(np.float32) / 255.0, device=device),
+                      kind=ENV_RGBE)
 
 
 def _decode(texel, kind: int):

@@ -7,10 +7,11 @@ procedural stand-in; a missing model without one raises
 triangles builds the LBVH with the native C++ code, cuts it into treelets
 and gathers the block table on the device, while smaller meshes take the
 brute-force engine and get no acceleration structure, as in the JAX
-package. Reads the environment map and the plane texture (a missing file
-leaves it out, with the JAX package's note on stderr) and computes direct
-mode's stratified jitters. Rows the port does not cover yet raise
-``NotImplementedError`` before any work is done.
+package. The mesh and the treelet cut go through the disk cache
+(``tracer_torch.scenes.cache``). Reads the environment map and the plane
+texture (a missing file leaves it out, with the JAX package's note on
+stderr) and computes direct mode's stratified jitters. Rows the port does
+not cover yet raise ``NotImplementedError`` before any work is done.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from tracer_torch.geometry.procedural import standin_for
 from tracer_torch.math.sampling import compute_jitters
 from tracer_torch.render import texture as tex
 from tracer_torch.render.camera import make_camera
+from tracer_torch.scenes import cache as disk_cache
 from tracer_torch.render.scene import (
     FROM_SELECTION1,
     FROM_SELECTION2,
@@ -83,9 +85,8 @@ def unsupported(desc: SceneDescriptor, cfg: SceneConfig) -> list[str]:
     lights; analytic spheres, planes and triangles and an optional mesh on
     the treelet engines (``bvh``, or ``bsp`` executed by them) or the
     brute-force engine; the ``while`` or the differentiable ``scan`` bounce
-    loop with any ``remat`` policy. Still missing: the BSP walk and the
-    ``bvh2``/``bvh8`` engines, path-mode next-event estimation with the sun
-    (``W9 E3``) and the environment map in direct mode."""
+    loop with any ``remat`` policy; the environment map in either mode.
+    Still missing: the BSP walk and the ``bvh2``/``bvh8`` engines."""
     why = []
     treelet = cfg.traversal == "bvh" or (
         cfg.traversal == "bsp" and cfg.bsp_execution == "fast")
@@ -96,14 +97,12 @@ def unsupported(desc: SceneDescriptor, cfg: SceneConfig) -> list[str]:
     if cfg.remat not in ("none", "full", "dots"):
         why.append(f"remat {cfg.remat!r}")
     if cfg.mode == "direct":
-        if desc.hdri or cfg.env_light:
-            why.append("environment map in direct mode")
         if set(cfg.lights) - set(DIRECT_LIGHTS):
             why.append(f"lights {cfg.lights}")
         if cfg.ambient not in AMBIENTS:
             why.append(f"ambient {cfg.ambient!r}")
     elif cfg.mode == "path":
-        if cfg.lights not in (("none",), ("area_mc",)):
+        if cfg.lights not in (("none",), ("area_mc",), ("directional",)):
             why.append(f"lights {cfg.lights} (next-event estimation)")
         if cfg.dielectric not in ("simple", "fresnel", "absorb"):
             why.append(f"dielectric {cfg.dielectric!r}")
@@ -129,33 +128,60 @@ def scene_config(desc: SceneDescriptor) -> SceneConfig:
     return cfg
 
 
-def load_image(path: str):
-    """The environment map or plane texture at ``path``; ``None`` (with a
-    note on stderr) when the file is missing, as in the JAX package: misses
-    then take the background colour and planes their base colour. Image
-    loaders are not ported."""
+def load_texture(path: str, rgbe: bool, device):
+    """The environment map or plane texture at ``path``, dispatched as the
+    JAX package's ``_load_texture_cached``: a Radiance ``.hdr``, an RGBE
+    ``.hdr.png`` (``rgbe``) or a plain image. ``None`` (with a note on
+    stderr) when the file is missing, as in the JAX package: misses then
+    take the background colour and planes their base colour. A file that
+    exists and cannot be decoded (JPEG) raises."""
     if not os.path.exists(path):
         print(f"[build] texture '{path}' missing — scene falls back to the "
               "background color (reference lists it in .MISSING_LARGE_BLOBS)",
               file=sys.stderr)
         return None
-    raise NotImplementedError(f"loading the image {path!r} is not ported")
+    if path.endswith(".hdr"):
+        return tex.load_radiance_hdr(path, device)
+    if rgbe:
+        return tex.load_rgbe_png(path, device)
+    return tex.load_image(path, device)
 
 
 def load_mesh(path: str, scale: float = 1.0):
-    """OBJ mesh, or the procedural stand-in for an absent bunny/dragon."""
+    """OBJ mesh, or the procedural stand-in for an absent bunny/dragon,
+    through the disk cache."""
+    m = disk_cache.load_mesh(path, scale)
+    if m is not None:
+        return m
     if not os.path.exists(path):
-        return standin_for(path)
-    m = obj_mod.load_obj(path)
-    return m.scale(scale) if scale != 1.0 else m
+        m = standin_for(path)
+    else:
+        m = obj_mod.load_obj(path)
+        if scale != 1.0:
+            m = m.scale(scale)
+    disk_cache.save_mesh(path, scale, m)
+    return m
+
+
+def treelet_host(mesh, bvh_leaf: int):
+    """The host half of the treelet build (native LBVH and treelet cut),
+    through the disk cache."""
+    fp = disk_cache.mesh_fingerprint(mesh)
+    host = disk_cache.load_treelet_host(fp, bvh_leaf, TREELET_T)
+    if host is None:
+        binary = lbvh.build_for_mesh(mesh, max_prims=bvh_leaf, native=True)
+        host = treelet_mod.build_host(binary, T=TREELET_T)
+        disk_cache.save_treelet_host(fp, bvh_leaf, host)
+    return host
 
 
 def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
     """Build the device scene for a descriptor; returns (Scene, SceneConfig).
 
     ``timings``: optional dict that receives per-stage wall seconds
-    (mesh_load / accel_host / upload / device_assembly for a mesh, and
-    total); device work is synchronized before each stage ends.
+    (mesh_load / accel_host / upload / device_assembly for a mesh,
+    analytic, textures, and total); device work is synchronized before each stage
+    ends.
     """
     cfg = scene_config(desc)
     marks: dict[str, float] = {}
@@ -178,8 +204,7 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
             cfg = dataclasses.replace(cfg, traversal="brute")
         host = None
         if cfg.traversal != "brute":
-            binary = lbvh.build_for_mesh(mesh, max_prims=desc.bvh_leaf, native=True)
-            host = treelet_mod.build_host(binary, T=TREELET_T)
+            host = treelet_host(mesh, desc.bvh_leaf)
         mark("accel_host")
         geom, materials, light_indices = upload_mesh(mesh, device)
         mark("upload")
@@ -201,6 +226,10 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
         v0, v1, v2, sh, bc = zip(*desc.tris)
         tris = AnalyticTriangles(verts=f32([list(v) for v in zip(v0, v1, v2)]),
                                  shader=i32(sh), base_color=f32(bc))
+    mark("analytic")
+    env = load_texture(desc.hdri, desc.hdri_rgbe, device) if desc.hdri else None
+    texture = load_texture(desc.texture, False, device) if desc.texture else None
+    mark("textures")
     jitters = None
     if cfg.mode != "path" and cfg.subdivs > 1:
         jitters = torch.as_tensor(compute_jitters(1.0 / cfg.height, cfg.subdivs), device=device)
@@ -213,10 +242,10 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
         light_indices=light_indices,
         tb=tb,
         planes=planes,
-        env=load_image(desc.hdri) if desc.hdri else None,
+        env=env,
         spheres=spheres,
         tris=tris,
-        texture=load_image(desc.texture) if desc.texture else None,
+        texture=texture,
         jitters=jitters,
     )
     if timings is not None:
