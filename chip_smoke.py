@@ -153,10 +153,38 @@ Phases (each raises on failure, so the script exits non-zero):
               non-zero before any work;
 13. hdr     — ``W9 E2 Bunny`` at 64x64 with ``tests/fixtures/tiny_env.hdr.png``
               as its environment, read by the build's RGBE loader: two
-              frames, the card's accumulator equal to the CPU's bit for bit.
+              frames, the card's accumulator equal to the CPU's bit for bit;
+14. dgrad   — direct-mode gradients (``grad_scene``, target zeros).
+              ``W6 E1 Dragon`` (the ``mix_ka`` ambient) on phase 4's dragon
+              at 800x450: 1 warm-up and 5 timed steps (ms/step by CUDA
+              events and the host clock, peak memory) and one under
+              ``torch.profiler`` (kernels, busy, idle, B1's and B2's device
+              time); every step ran B1 and B2 and neither twin, every leaf
+              is finite, the vertex, normal, diffuse and eye leaves are
+              nonzero, two steps agree bit for bit, and ``fd_check`` passes
+              on the diffuse albedo. The shadowed dragon (W5 E3's
+              configuration on the stand-in, as phase 10): 1 warm-up and 2
+              timed steps, B1 in any-hit mode on each. One step each (after
+              one) of ``W5 E5`` and ``W6 E3 Cornell Box`` and ``W3 E3``
+              (16 sub-samples, ``seeded_texture`` on the plane that
+              ``with_textured_plane`` marks textured) at 512x512, with no
+              hand kernel; each of those rows at 32x32 on the card against
+              the port's CPU gradient of the same inputs
+              (``DGRAD_CARD_RTOL``);
+15. walk    — the BSP walk (``bsp_execution="walk"``) and the ``bvh2`` walk
+              on ``Project: Bunny BSP`` at 512x512: build time, 1 warm-up
+              and 2 timed frames each (ms/frame, walk steps per frame), no
+              hand kernel, and the primary rays' hit ids against the
+              treelet engine's (B1); then W9 E1's bounce-2 mesh query
+              (512x512, the seeded environment) through both walks beside
+              packet + B3 on the same rays: ms per query, steps, and ids
+              against packet + B3's (at most ``WALK_MAX_DIFFER`` of the
+              lanes may differ, each at an equal t: a tie on a shared
+              edge).
 
-B1's ``launches`` count the timed frames and steps of phases 4, 5 and 10
-and the CLI's frames of phase 12; B3's those of phases 6, 9 and 11.
+B1's ``launches`` count the timed frames and steps of phases 4, 5, 10 and
+14 and the CLI's frames of phase 12; B2's the steps of phases 5, 9 and 14;
+B3's the frames and steps of phases 6, 9 and 11.
 
 Prints one JSON object of per-kernel results on the line before the last,
 and ``{"ok": true, "device": {...}}`` as the last line. Imports nothing of
@@ -289,6 +317,17 @@ SUN_REF = {
 }
 SUN_RTOL = PATH_RTOL
 
+# The card's direct-mode gradient against the port's CPU gradient of the
+# same inputs at 32x32 (phase 14): allclose at this rtol with an atol of
+# 1e-4 of each leaf's largest magnitude. The forward frames are bitwise
+# equal on the two devices; autograd's reductions (over lanes into the
+# camera, the materials' one-hot products, the texels' gathers) sum in
+# other orders there.
+DGRAD_CARD_RTOL = 1e-4
+# Phase 15: lanes of a walk's frame whose hit id may differ from the
+# treelet engine's (both hit one triangle's shared edge: a tie of t).
+WALK_MAX_DIFFER = 0.001
+
 
 def seeded_env(rgbe: bool, seed: int = 0, shape=(32, 64)) -> np.ndarray:
     """An (H, W, 4) float32 environment map of random 8-bit texels from
@@ -330,6 +369,16 @@ def with_lit_plane(desc):
     sun). A test configuration, not a registry row."""
     planes = tuple((p[0], p[1], p[2], p[3], 0, (0.8, 0.8, 0.8), p[6]) for p in desc.planes)
     return dataclasses.replace(desc, name=f"{desc.name}, lit plane", planes=planes)
+
+
+def with_textured_plane(desc):
+    """``desc`` with its planes marked textured. Both registries build the
+    W3 rows' plane untextured (``_w1_analytics``' ``textured=False``), so
+    a bound texture never shows there; with this the plane samples it, and
+    ``texture.data`` and ``uniforms.uv_scale`` get gradients. A test
+    configuration, not a registry row."""
+    planes = tuple(p[:6] + (True,) for p in desc.planes)
+    return dataclasses.replace(desc, name=f"{desc.name}, textured plane", planes=planes)
 
 
 def sun_desc(get_scene, lit: bool = False, size=None):
@@ -1670,6 +1719,264 @@ def cli_phase(dev, card: str, kernels) -> dict:
     return dict(b1_launches=launches)
 
 
+def dgrad_phase(dev, card: str, kernels, dragon) -> dict:
+    """Phase 14: direct-mode gradients (see the module docstring). ``dragon``
+    is phase 4's (scene, cfg, descriptor, primary rays, hit ids). Raises on
+    any failed check; returns B1's and B2's launches in the phase."""
+    from tracer_torch import convert
+    from tracer_torch.diff import grad as G
+    from tracer_torch.kernels import scatter_vn, super_hits, treelet_hits
+    from tracer_torch.render import texture as tex
+    from tracer_torch.scenes.build import build_scene, scene_config
+    from tracer_torch.scenes.registry import get_scene
+
+    dscene, _, ddesc, _, _ = dragon
+
+    def reset():
+        for m in kernels:
+            m.KERNEL_LAUNCHES = m.REFERENCE_CALLS = 0
+
+    def twin_calls():
+        return sum(m.REFERENCE_CALLS for m in kernels)
+
+    def zeros(cfg):
+        return torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32, device=dev)
+
+    def on_dragon(row_desc, steps, nonzero):
+        """``steps`` timed gradient steps after one of phase 4's dragon under
+        this row's configuration: each runs B1 and B2 and no twin."""
+        if not same_but_config(row_desc, ddesc):
+            raise AssertionError(f"{row_desc.name} is not phase 4's dragon under another config")
+        cfg = dataclasses.replace(scene_config(row_desc), loop="scan")
+        if G.not_differentiated(dscene, cfg):
+            raise AssertionError(f"{row_desc.name}: {G.not_differentiated(dscene, cfg)}")
+        target = zeros(cfg)
+        reset()
+        out, per_step = [], []
+
+        def step():
+            out.append(G.grad_scene(dscene, cfg, target))
+            del out[:-2]
+            per_step.append((super_hits.KERNEL_LAUNCHES, scatter_vn.KERNEL_LAUNCHES))
+
+        step()
+        ms, host_ms, peak = timed_steps(step, steps)
+        b1, b2 = super_hits.KERNEL_LAUNCHES, scatter_vn.KERNEL_LAUNCHES
+        runs = np.diff(np.array([(0, 0)] + per_step), axis=0)
+        if (runs < 1).any() or twin_calls() or treelet_hits.KERNEL_LAUNCHES:
+            raise AssertionError(f"{row_desc.name}: a step did not run B1 and B2 alone "
+                                 f"(per step {runs.tolist()}, twin calls {twin_calls()})")
+        ga = grad_checks(row_desc.name, out[-1], out[-2], nonzero)
+        log(f"[dgrad] {row_desc.name} {cfg.width}x{cfg.height} (phase 4's dragon), lights "
+            f"{cfg.lights}, shadows {cfg.shadows}, ambient {cfg.ambient!r}: {steps} steps after "
+            f"1: {ms:.3f} ms/step (CUDA events), {host_ms:.3f} ms/step (host clock), peak "
+            f"{peak / 2**30:.3f} GiB; B1 launches {b1}, B2 launches {b2} over {steps + 1} steps "
+            f"(per step {runs[0].tolist()}), twin calls 0; every leaf finite, two steps equal "
+            f"bitwise; " + ", ".join(f"{k} sum|g| {float(np.abs(ga[k]).sum()):.6g}"
+                                     for k in nonzero) + f"; {card}")
+        return cfg, target, b1, b2
+
+    # 14a. W6 E1 Dragon's gradient step: B1 forward, B2 backward.
+    nonzero = ("geom.vertices", "geom.normals", "materials.diffuse", "camera.eye")
+    cfg6, target6, b1_w6, b2_w6 = on_dragon(get_scene("W6 E1 Dragon"), 5, nonzero)
+    prof = profile_step(lambda: G.grad_scene(dscene, cfg6, target6),
+                        {"b1_ms": "super_hits", "b2_ms": "_sums_kernel"})
+    if prof:
+        log(f"[dgrad] W6 E1 Dragon profiled step: {prof['kernels']} kernels, device busy "
+            f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms trace (idle "
+            f"{prof['idle']:.1%}), B1 {prof['b1_ms']:.4f} ms, B2's two kernels "
+            f"{prof['b2_ms']:.4f} ms; {card}")
+    else:
+        log("[dgrad] the profiler recorded no device time")
+
+    def set_diffuse(s, leaf):
+        return dataclasses.replace(s, materials=dataclasses.replace(s.materials, diffuse=leaf))
+
+    ad, fd = G.fd_check(dscene, cfg6, target6, lambda s: s.materials.diffuse, set_diffuse,
+                        torch.ones_like(dscene.materials.diffuse), eps=1e-2, rtol=1e-3)
+    log(f"[dgrad] W6 E1 Dragon fd_check materials.diffuse: ad {ad!r} fd {fd!r}")
+
+    # 14b. The shadowed stand-in's step: B1 in both modes, B2.
+    modes = []
+    hits2 = super_hits.hits2
+    super_hits.hits2 = lambda *a: modes.append(bool(a[-1])) or hits2(*a)
+    try:
+        _, _, b1_sh, b2_sh = on_dragon(with_standin_mesh(get_scene("W5 E3 Teapot"), "dragon.obj"),
+                                       2, ("geom.vertices", "camera.eye"))
+    finally:
+        super_hits.hits2 = hits2
+    if sum(modes) < 3:
+        raise AssertionError("the shadowed steps did not each run B1 in any-hit mode")
+    log(f"[dgrad] shadowed dragon: {sum(modes)} of {len(modes)} B1 launches in any-hit mode")
+
+    # 14c. One step each of W5 E5, W6 E3 and W3 E3 (textured) at their
+    # registered sizes; no hand kernel (the Cornell box takes one-hot
+    # products, worksheet 3 has no mesh).
+    def textured(scene):
+        return dataclasses.replace(
+            scene, texture=tex.TextureBuf(torch.as_tensor(seeded_texture(), device=scene.device),
+                                          tex.ENV_LDR),
+            uniforms=dataclasses.replace(scene.uniforms, use_texture=tex.TEX_DEFAULT,
+                                         uv_scale=torch.tensor((1.5, 2.0), device=scene.device)))
+
+    rows = (("W5 E5 Cornell Box", with_fixture_model, lambda s: s,
+             ("geom.vertices", "materials.diffuse", "materials.emission", "camera.eye")),
+            ("W6 E3 Cornell Box", with_fixture_model, lambda s: s,
+             ("geom.vertices", "materials.diffuse", "spheres.center", "camera.eye")),
+            ("W3 E3", with_textured_plane, textured,
+             ("texture.data", "uniforms.uv_scale", "jitters", "tris.verts", "camera.eye")))
+    for name, fix, bind, nz in rows:
+        desc = fix(get_scene(name))
+        scene, cfg = build_scene(desc, dev)
+        scene = bind(scene)
+        target = zeros(cfg)
+        reset()
+        out = [G.grad_scene(scene, cfg, target)]
+        ms, host_ms, peak = timed_steps(lambda: out.append(G.grad_scene(scene, cfg, target)), 1)
+        if any((m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) != (0, 0) for m in kernels):
+            raise AssertionError(f"{name}: a hand kernel or a twin ran")
+        grad_checks(name, out[-1], out[-2], nz)
+        log(f"[dgrad] {name} {cfg.width}x{cfg.height}, subdivs {cfg.subdivs}, lights "
+            f"{cfg.lights}: 1 step after 1: {ms:.3f} ms/step (CUDA events), {host_ms:.3f} "
+            f"ms/step (host clock), peak {peak / 2**30:.3f} GiB; every leaf finite, two steps "
+            f"equal bitwise, {', '.join(nz)} nonzero; {card}")
+
+        # 14d. The same row at 32x32: the card's gradient against the CPU's.
+        small = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=32, height=32))
+        gs = []
+        for device in (dev, "cpu"):
+            sc, c = build_scene(small, device)
+            gs.append(convert.grads_to_arrays(G.grad_scene(bind(sc), c, zeros(c).to(device))))
+        worst = 0.0
+        for k, want in gs[1].items():
+            got = gs[0][k]
+            scale = float(np.abs(want).max()) if want.size else 0.0
+            np.testing.assert_allclose(got, want, rtol=DGRAD_CARD_RTOL, atol=1e-4 * scale,
+                                       err_msg=f"{name} 32x32 card vs CPU {k}")
+            if scale:
+                worst = max(worst, float(np.abs(got - want).max()) / scale)
+        log(f"[dgrad 32x32] {name}: the card's gradient equals the CPU's within rtol "
+            f"{DGRAD_CARD_RTOL} (largest difference {worst:.3g} of a leaf's largest magnitude)")
+    return dict(b1_launches=b1_w6 + b1_sh, b2_launches=b2_w6 + b2_sh)
+
+
+def walk_phase(dev, card: str, kernels) -> None:
+    """Phase 15: the BSP and ``bvh2`` walks (see the module docstring).
+    Raises on any failed check."""
+    from tracer_torch.accel import bsp, flat, lbvh, packet, traverse
+    from tracer_torch.kernels import treelet_hits
+    from tracer_torch.render import integrator, progressive
+    from tracer_torch.scenes.build import build_scene, load_mesh
+    from tracer_torch.scenes.registry import get_scene
+
+    steps = []
+    walks = (bsp.walk, traverse.walk)
+
+    def counted(fn):
+        def run(*a):
+            steps.append(fn(*a))
+            return steps[-1]
+        return run
+
+    def same_ids(name, ids, t, want_ids, want_t):
+        differ = ids != want_ids
+        n = int(differ.sum())
+        far = differ & ~torch.isclose(t, want_t, rtol=1e-5, atol=0)
+        log(f"[walk] {name}: ids equal the reference's on {ids.numel() - n} of {ids.numel()} "
+            f"lanes; {n} differ, {int(far.sum())} of them at another t")
+        if n > WALK_MAX_DIFFER * ids.numel() or bool(far.any()):
+            raise AssertionError(f"{name}: hit ids differ from the reference's")
+
+    # 15a. Project: Bunny BSP at 512x512: the BSP walk and bvh2, against
+    # the treelet engine's ids (B1) on the same primary rays.
+    desc = get_scene("Project: Bunny BSP")
+    fscene, fcfg = build_scene(desc, dev)
+    frame = (fcfg.width, fcfg.height)
+    rays = integrator.primary_rays(fscene, fcfg)
+    t_ref, ids_ref = flat.closest_hit(rays, fscene.tb, frame)
+    for name, kw in (("BSP walk", dict(bsp_execution="walk")), ("bvh2", dict(traversal="bvh2"))):
+        t0 = time.perf_counter()
+        scene, cfg = build_scene(dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg,
+                                                                                  **kw)), dev)
+        built = time.perf_counter() - t0
+        state = progressive.init_state(cfg, dev)
+        for m in kernels:
+            m.KERNEL_LAUNCHES = m.REFERENCE_CALLS = 0
+        progressive.step(scene, cfg, state)
+        bsp.walk, traverse.walk = (counted(w) for w in walks)
+        try:
+            ms, host_ms = timed_frames(scene, cfg, state, 2)
+        finally:
+            bsp.walk, traverse.walk = walks
+        if any((m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) != (0, 0) for m in kernels):
+            raise AssertionError(f"{name}: a hand kernel or a twin ran")
+        if not bool(torch.isfinite(state.accum).all()):
+            raise AssertionError(f"{name}: the accumulator is not finite")
+        V, I = scene.geom.vertices, scene.geom.indices
+        if scene.bsp is not None:
+            t, ids, conv = bsp.bsp_closest_hit(rays, scene.bsp, V, I, with_conv=True)
+            if not bool(conv.all()):
+                raise AssertionError(f"{name}: {int((~conv).sum())} lanes were cut")
+        else:
+            t, ids = traverse.bvh_closest_hit(rays, scene.bvh, V, I, max_leaf=cfg.max_leaf)
+        log(f"[walk] {desc.name} {cfg.width}x{cfg.height} by the {name} (built in {built:.2f} s"
+            + (f", {scene.bsp.axis.shape[0]} nodes, largest leaf {scene.bsp.max_count}"
+               if scene.bsp is not None else f", {scene.bvh.left.shape[0]} nodes")
+            + f"): 2 frames after 1: {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms/frame "
+            f"(host clock), {sum(steps) / 2:.0f} walk steps per frame; {card}")
+        steps.clear()
+        same_ids(f"{name} primary rays vs the treelet engine (B1)", ids, t, ids_ref, t_ref)
+
+    # 15b. W9 E1's bounce-2 mesh query by the two walks, beside packet + B3.
+    pdesc = get_scene("W9 E1 Bunny")
+    pscene, pcfg = build_scene(pdesc, dev)
+    pscene = with_seeded_env(pscene, pdesc, dev)
+    caught = []
+    closest = packet.closest_hit
+    packet.closest_hit = lambda r, *a, **kw: caught.append(r) or closest(r, *a, **kw)
+    try:
+        progressive.step(pscene, pcfg, progressive.init_state(pcfg, dev))
+    finally:
+        packet.closest_hit = closest
+    r2 = caught[1]
+    pframe = (pcfg.width, pcfg.height)
+    live = int((r2.tmax > r2.tmin).sum())
+    mesh = load_mesh(pdesc.model, pdesc.model_scale)
+    t0 = time.perf_counter()
+    btree = bsp.to_device(bsp.build_for_mesh(mesh), dev)
+    bvh = traverse.to_device(lbvh.build_for_mesh(mesh, max_prims=pdesc.bvh_leaf), dev)
+    built = time.perf_counter() - t0
+    V, I = pscene.geom.vertices, pscene.geom.indices
+    treelet_hits.KERNEL_LAUNCHES = 0
+    t_p, ids_p = closest(r2, pscene.tb, frame=pframe)
+    if not treelet_hits.KERNEL_LAUNCHES:
+        raise AssertionError("packet + B3 did not launch B3")
+    packet_ms = cuda_events_ms(lambda: closest(r2, pscene.tb, frame=pframe), 3)
+    bsp.walk = counted(walks[0])
+    try:
+        t_b, ids_b, conv = bsp.bsp_closest_hit(r2, btree, V, I, with_conv=True)
+    finally:
+        bsp.walk = walks[0]
+    bsp_steps = steps.pop()
+    bsp_ms = cuda_events_ms(lambda: bsp.bsp_closest_hit(r2, btree, V, I), 3)
+    traverse.walk = counted(walks[1])
+    try:
+        t_v, ids_v = traverse.bvh_closest_hit(r2, bvh, V, I, max_leaf=pcfg.max_leaf)
+    finally:
+        traverse.walk = walks[1]
+    bvh_steps = steps.pop()
+    bvh_ms = cuda_events_ms(lambda: traverse.bvh_closest_hit(r2, bvh, V, I,
+                                                             max_leaf=pcfg.max_leaf), 3)
+    if not bool(conv.all()):
+        raise AssertionError(f"the BSP walk cut {int((~conv).sum())} lanes of bounce 2")
+    log(f"[walk] W9 E1 bounce 2 ({live} of {r2.tmax.numel()} lanes with a window; trees built "
+        f"in {built:.2f} s): packet + B3 {packet_ms:.3f} ms, BSP walk {bsp_ms:.3f} ms "
+        f"({bsp_steps} steps), bvh2 walk {bvh_ms:.3f} ms ({bvh_steps} steps) per query "
+        f"(CUDA events); {card}")
+    same_ids("BSP walk on W9 E1 bounce 2 vs packet + B3", ids_b, t_b, ids_p, t_p)
+    same_ids("bvh2 walk on W9 E1 bounce 2 vs packet + B3", ids_v, t_v, ids_p, t_p)
+
+
 def hdr_phase(dev, card: str) -> None:
     """Phase 13: ``W9 E2 Bunny`` at 64x64 with ``tests/fixtures/tiny_env.hdr.png``
     as its environment, read by the build's loader (``load_rgbe_png``):
@@ -1732,6 +2039,7 @@ def profile_step(step, keys: dict) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     # 1. Probe.
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is false")
@@ -2243,13 +2551,25 @@ def main() -> int:
     # 13. The RGBE loader on W9 E2.
     hdr_phase(dev, card)
 
+    # 14. Direct-mode gradients: W6 E1 Dragon and the shadowed stand-in
+    # (B1 and B2), the Cornell rows and worksheet 3 (no hand kernel).
+    t0 = time.perf_counter()
+    dg = dgrad_phase(dev, card, kernels, (scene, cfg, desc, rays, ids_k))
+    t1 = time.perf_counter()
+
+    # 15. The BSP and bvh2 walks (PyTorch ops; no hand kernel).
+    walk_phase(dev, card, kernels)
+    t2 = time.perf_counter()
+    log(f"[time] phase 14 took {t1 - t0:.1f} s, phase 15 {t2 - t1:.1f} s; the smoke "
+        f"{t2 - t_start:.1f} s so far (host clock)")
+
     log(json.dumps({"kernels": [{
         "name": "super_hits.hits2",
         "route": "cuda",
         "source": "tracer_torch/csrc/super_hits.cu",
         "replaces": "tracer/kernels/super_hits.py:262",
         "launches": launches + g_launches["super_hits"] + dr["b1_launches"]
-        + cl["b1_launches"],
+        + cl["b1_launches"] + dg["b1_launches"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2262,7 +2582,7 @@ def main() -> int:
         "route": "cuda",
         "source": "tracer_torch/csrc/scatter_vn.cu",
         "replaces": "tracer/kernels/scatter_vn.py:109",
-        "launches": g_launches["scatter_vn"] + pg["b2_launches"],
+        "launches": g_launches["scatter_vn"] + pg["b2_launches"] + dg["b2_launches"],
         "max_abs_err": b2_err,
         "ms": b2_ms,
         "device_ms": b2_device_ms,

@@ -185,14 +185,18 @@ def _outside(name, **cfg_kw):
 
 
 @pytest.mark.parametrize("case", [
-    ("W9 E1 Bunny", dict(traversal="bsp", bsp_execution="walk"), "traversal 'bsp' \\(walk\\)"),
-    ("W6 E1 Bunny", dict(bsp_execution="walk"), "traversal 'bsp' \\(walk\\)"),
-    ("Project: Bunny", dict(traversal="bvh2"), "traversal 'bvh2'"),
+    ("W9 E1 Bunny", dict(traversal="bvh8"), "traversal 'bvh8'"),
+    ("W6 E1 Bunny", dict(lights=("area_mc",)), "lights \\('area_mc',\\)"),
+    ("W8 E3 Absorption", dict(dielectric="absorb_v2"), "dielectric 'absorb_v2'"),
     ("Project: Dragon", dict(traversal="bvh8"), "traversal 'bvh8'"),
-], ids=["path bsp walk", "bsp walk", "bvh2", "bvh8"])
+], ids=["path bvh8", "direct unknown light", "path absorb_v2", "bvh8"])
 def test_build_scene_rejects_rows_outside_slice(case):
-    """What is still missing raises before any work: the BSP walk (in
-    either mode) and the bvh2 and bvh8 engines."""
+    """What is still outside raises before any work: the bvh8 engine (in
+    either mode), a direct-mode light kind outside ``DIRECT_LIGHTS`` and
+    the ``absorb_v2`` dielectric (no registry row uses either). The BSP
+    walk and ``bvh2`` are served (``tests/test_torch_bsp.py``,
+    ``tests/test_torch_traverse.py``); ``--sharded`` is refused by the CLI
+    (``tests/test_torch_cli.py``)."""
     name, cfg_kw, why = case
     with pytest.raises(NotImplementedError, match=f"outside the ported slice: .*{why}"):
         build_scene(_outside(name, **cfg_kw), "cpu")

@@ -11,9 +11,12 @@ package's (``python -m tracer.cli``).
   ``r`` is the one the same flags give in one run, bit for bit.
 * ``--checkpoint`` then ``--resume`` equals a straight run bit for bit
   (``W9 E1 Bunny`` at 8x8, path mode); ``--profile`` writes a trace.
-* ``--sharded`` and ``--traversal bvh2``/``bvh8`` exit non-zero before any
-  work; without a card and without ``--device cpu`` the CLI stops with one
-  sentence.
+* ``--sharded`` and ``--traversal bvh8`` exit non-zero before any work
+  (with ``--device cpu`` too); without a card and without ``--device cpu``
+  the CLI stops with one sentence.
+* ``--traversal bvh2`` runs: the bunny's frame through the ``bvh2`` walk
+  equals the treelet engine's at atol 1e-5 on at least 99.5% of the
+  pixels.
 """
 
 from __future__ import annotations
@@ -100,8 +103,8 @@ def test_checkpoint_resume_and_profile(tmp_path):
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("flags", [["--sharded"], ["--traversal", "bvh2"],
-                                   ["--traversal", "bvh8"]], ids=["sharded", "bvh2", "bvh8"])
+@pytest.mark.parametrize("flags", [["--sharded"], ["--traversal", "bvh8", "--device", "cpu"],
+                                   ["--traversal", "bvh8"]], ids=["sharded", "bvh8 cpu", "bvh8"])
 def test_refusals_before_any_work(flags, monkeypatch, capsys):
     def no_work(*a, **k):
         raise AssertionError("the CLI built a scene")
@@ -122,3 +125,12 @@ def test_default_device_is_the_card(monkeypatch, capsys):
     assert cli.main(["--scene", "W1 E6"]) == 1
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1 and "no CUDA device" in err[0] and "--device cpu" in err[0]
+
+
+def test_traversal_bvh2_runs(tmp_path):
+    size = ["--device", "cpu", "--scene", "Project: Bunny", "--width", "16", "--height", "12"]
+    assert cli.main(size + ["--traversal", "bvh2", "--out-npz", str(tmp_path / "b.npz")]) == 0
+    assert cli.main(size + ["--out-npz", str(tmp_path / "t.npz")]) == 0
+    with np.load(tmp_path / "b.npz") as b, np.load(tmp_path / "t.npz") as t:
+        close = np.isclose(b["image"], t["image"], rtol=0, atol=1e-5).all(axis=-1)
+        assert close.mean() >= 0.995 and np.abs(t["image"]).sum() > 0

@@ -37,8 +37,11 @@ Tolerances:
   fixture environment read by the port's PNG decoder, and a checkpoint
   written on the card and resumed on the card and on the CPU: bit for bit,
   for the same reasons.
-* The gradient (the dragon's single bounce, and the path gradients of W8
-  E3 at 64x64 and W9 E1 at 32x32): two card runs bit for bit. Card against
+* The BSP and ``bvh2`` walks: bit for bit (the Möller test of
+  ``kernels/intersect``, exactly rounded).
+* The gradient (the dragon's single bounce, the direct rows of W2 E5, W6
+  E2 and W6 E1 Bunny at 24x24, and the path gradients of W8 E3 at 64x64
+  and W9 E1 at 32x32): two card runs bit for bit. Card against
   CPU at rtol 1e-4 with an atol of 1e-5 of each leaf's largest magnitude,
   not bitwise: the reductions over the lanes (the camera's broadcast to
   every ray, the one-hot products' backward) run in CUDA's and cuBLAS's
@@ -216,8 +219,9 @@ def test_segment_place_kernel_matches_twin(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [32, 512])
 def test_segment_place_kernel_matches_twin_at_other_chunk_lengths(cuda, rows, monkeypatch):
-    """The wrapper passes ``CHUNK_ROWS`` to the kernel: at 32 and 512 rows
-    the kernel still equals the CPU twin, which reads the same constant."""
+    """The wrapper passes ``CHUNK_ROWS`` to the kernel, which is compiled
+    for 32, 256 and 512: at 32 and 512 rows it still equals the CPU twin,
+    which reads the same constant."""
     monkeypatch.setattr(scatter_vn, "CHUNK_ROWS", rows)
     for _, ids, vals, V in scatter_streams(2, long_rows=5_000):
         sids, perm = torch.sort(torch.as_tensor(ids, device=cuda), stable=True)
@@ -253,6 +257,19 @@ def test_segment_place_kernel_edge_streams(cuda):
         touched = np.unique(cid[ok])
         want[touched] = want[touched] + part[touched]
     assert got.shape == (V, 6) and _bits_equal(got, torch.as_tensor(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 128, 1024])
+def test_segment_place_refuses_chunk_lengths_it_is_not_built_for(cuda, rows, monkeypatch):
+    """Chunk lengths other than 32, 256 and 512 have no compiled instance:
+    the wrapper refuses them before any launch."""
+    monkeypatch.setattr(scatter_vn, "CHUNK_ROWS", rows)
+    launches = scatter_vn.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="built for chunks"):
+        scatter_vn.segment_place(torch.zeros(4, dtype=torch.int32, device=cuda),
+                                 torch.zeros((4, 6), device=cuda), 8)
+    assert scatter_vn.KERNEL_LAUNCHES == launches
 
 
 @pytest.mark.cuda
@@ -594,3 +611,66 @@ def test_rgbe_fixture_environment_on_card_matches_cpu(cuda):
         assert scene.env is not None and scene.env.kind == tex.ENV_RGBE
         accs[str(dev)] = progressive.render_progressive(scene, cfg, 2).accum
     assert _bits_equal(accs["cpu"], accs[str(cuda)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["bsp", "bvh2"])
+def test_walks_on_the_card_equal_the_cpu(cuda, walk):
+    """The BSP walk and the ``bvh2`` walk on the card: hit ids, t and
+    any-hit masks bit for bit the CPU's on seeded rays around the bunny
+    stand-in (the same float32 Möller test, exactly rounded on both
+    devices)."""
+    from tracer_torch.accel import bsp, traverse
+    from tracer_torch.geometry.procedural import standin_for
+
+    mesh = standin_for("bunny.obj")
+    rs = np.random.RandomState(4)
+    lo, hi = mesh.vertices.min(axis=0), mesh.vertices.max(axis=0)
+    c, ext = (lo + hi) / 2, float(np.max(hi - lo))
+    o = (c + rs.randn(4096, 3) * ext).astype(np.float32)
+    d = (c + rs.randn(4096, 3) * ext * 0.3).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.where(np.arange(4096) % 4 == 0, np.linalg.norm(o - c, axis=1), 5000.0)
+    host = (bsp.build(*mesh.bboxes()) if walk == "bsp"
+            else lbvh.build(*mesh.bboxes(), max_prims=4))
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        rays = make_rays(torch.as_tensor(o, device=device), torch.as_tensor(d, device=device),
+                         tmin=1e-4, tmax=torch.as_tensor(tmax.astype(np.float32), device=device))
+        V = torch.as_tensor(mesh.vertices, device=device)
+        I = torch.as_tensor(mesh.indices.astype(np.int32), device=device)
+        if walk == "bsp":
+            tree = bsp.to_device(host, device)
+            t, ids = bsp.bsp_closest_hit(rays, tree, V, I)
+            blocked = bsp.bsp_any_hit(rays, tree, V, I)
+        else:
+            tree = traverse.to_device(host, device)
+            t, ids = traverse.bvh_closest_hit(rays, tree, V, I, max_leaf=4)
+            blocked = traverse.bvh_any_hit(rays, tree, V, I, max_leaf=4)
+        out.append((t, ids, blocked))
+    (tk, ik, bk), (tc, ic, bc) = out
+    assert int((ic >= 0).sum()) > 500 and int(bc.sum()) > 500
+    assert torch.equal(ik.cpu(), ic) and torch.equal(bk.cpu(), bc) and _bits_equal(tk, tc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", ["W2 E5", "W6 E2 Cornell Box", "W6 E1 Bunny"])
+def test_direct_gradient_on_the_card_matches_the_cpu(cuda, row):
+    """Direct-mode gradients (shadow rays, the transmit, the area lights,
+    ``mix_ka`` through B1 and B2 on the bunny) at 24x24: two card runs bit
+    for bit, and the card against the CPU at rtol 1e-4 with an atol of 1e-4
+    of each leaf's largest magnitude (the reductions' orders differ)."""
+    desc = get_scene(row)
+    if "Cornell" in row:
+        desc = with_fixture_model(desc)
+    desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=24, height=24))
+    grads = []
+    for device in (cuda, cuda, torch.device("cpu")):
+        scene, cfg = build_scene(desc, device)
+        target = torch.zeros((24 * 24, 3), device=device)
+        grads.append(convert.grads_to_arrays(G.grad_scene(scene, cfg, target)))
+    for k, want in grads[2].items():
+        assert np.isfinite(grads[0][k]).all(), k
+        assert np.array_equal(grads[0][k].view(np.int32), grads[1][k].view(np.int32)), k
+        scale = float(np.abs(want).max()) if want.size else 0.0
+        np.testing.assert_allclose(grads[0][k], want, rtol=1e-4, atol=1e-4 * scale, err_msg=k)

@@ -3,7 +3,8 @@ rows and the shadowed frame on a stand-in mesh): two ``progressive.step``
 frames of each row against the JAX package's ``tracer.render.progressive.
 step`` on the very same buffers (``convert.scene_from_arrays``), and the
 pieces under it: ``compute_jitters``, the texture samplers, the port's own
-scene build and ``grad_scene``'s refusal of what it does not differentiate.
+scene build, and ``grad_scene`` on six of the cases (``GRAD_KEYS``)
+against the JAX package's gradient (``tests/_direct_grad.py``'s checks).
 
 Cases: W1 E1-E6, W2 E1-E5 (W2 E5 also with the sphere and plane
 selections (4, 1): glossy and Phong, and (7, 5): the transparent shader,
@@ -52,6 +53,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _direct_grad import check_case, jax_gradient_side
 from _share_cores import share_cores
 from test_torch_brute import borderline
 
@@ -80,6 +82,13 @@ CORNELL = ("W5 E4 Cornell Box", "W5 E5 Cornell Box", "W6 E2 Cornell Box",
 MESHES = ("W6 E1 Bunny", "Project: Bunny BSP", "Project: Dragon BSP")
 SHADOWED = "W5 E3 Teapot"  # on the bunny stand-in, see ``with_standin_mesh``
 FLAT_CASES = MESHES + ("W5 E3 shadowed bunny",)  # the cases that reach the flat engine
+# The cases whose gradient is held to the JAX package here; the JAX package
+# compiles SLOW_GRAD's (16 sub-samples) for about a minute, in a child of
+# its own (GRAD_ONLY marks such a child's keys).
+GRAD_KEYS = ("W1 E6", "W2 E2", "W3 E3 texture", "W5 E5 Cornell Box", "W6 E1 Bunny",
+             "W5 E3 shadowed bunny")
+SLOW_GRAD = "W3 E3 texture"
+GRAD_ONLY = "--gradient-only"
 
 
 def _cases() -> dict:
@@ -144,6 +153,24 @@ SAMPLERS = ("nearest", tex.TEX_NONE, tex.TEX_DEFAULT, tex.TEX_BILINEAR, tex.TEX_
 # --- The JAX side (child process) -----------------------------------------
 
 
+def _jax_case(key, jax_build_scene, jax_get_scene, jax_tex, jax_replace, jnp):
+    """The JAX package's scene and config of case ``key``."""
+    scene, cfg = jax_build_scene(case_desc(key, jax_get_scene))
+    texture = CASES[key][3]
+    if texture is not None:
+        # A new name, so that this JAX version compiles the step afresh
+        # for the scene with a texture (it would reuse the program
+        # compiled for the same config without one).
+        cfg = dataclasses.replace(cfg, name=f"{cfg.name} (seeded texture)")
+        mode, uv_scale = texture
+        scene = jax_replace(
+            scene, texture=jax_tex.TextureBuf(data=jnp.asarray(seeded_texture()),
+                                              kind=jax_tex.ENV_LDR),
+            uniforms=jax_replace(scene.uniforms, use_texture=jnp.int32(mode),
+                                 uv_scale=jnp.asarray(uv_scale, jnp.float32)))
+    return scene, cfg
+
+
 def _write_jax_side(out: Path, keys: list) -> None:
     """The JAX side of the cases ``keys``, pickled to ``out``: each case's
     scene buffers and config and its accumulator after each of two steps;
@@ -160,28 +187,30 @@ def _write_jax_side(out: Path, keys: list) -> None:
     from tracer.util import replace as jax_replace
 
     jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS", "cpu"))
-    side = {"cases": {}, "jitters": {}, "samples": {}}
+    side = {"cases": {}, "jitters": {}, "samples": {}, "grads": {}}
+    if keys and keys[0] == GRAD_ONLY:
+        # A case's gradient alone, in a child of its own.
+        for key in keys[1:]:
+            scene, cfg = _jax_case(key, jax_build_scene, jax_get_scene, jax_tex, jax_replace, jnp)
+            side["grads"][key] = jax_gradient_side(scene, cfg)
+        with open(out, "wb") as f:
+            pickle.dump(side, f)
+        return
     shared = not keys
+    built = {}
     for key in keys or [k for k in CASES if k not in FLAT_CASES]:
-        scene, cfg = jax_build_scene(case_desc(key, jax_get_scene))
-        texture = CASES[key][3]
-        if texture is not None:
-            # A new name, so that this JAX version compiles the step afresh
-            # for the scene with a texture (it would reuse the program
-            # compiled for the same config without one).
-            cfg = dataclasses.replace(cfg, name=f"{cfg.name} (seeded texture)")
-            mode, uv_scale = texture
-            scene = jax_replace(
-                scene, texture=jax_tex.TextureBuf(data=jnp.asarray(seeded_texture()),
-                                                  kind=jax_tex.ENV_LDR),
-                uniforms=jax_replace(scene.uniforms, use_texture=jnp.int32(mode),
-                                     uv_scale=jnp.asarray(uv_scale, jnp.float32)))
+        scene, cfg = _jax_case(key, jax_build_scene, jax_get_scene, jax_tex, jax_replace, jnp)
+        built[key] = scene, cfg
         st = jax_progressive.init_state(cfg)
         accs = []
         for _ in range(2):
             st = jax_progressive.step(scene, cfg, st)
             accs.append(np.asarray(st.accum).copy())
         side["cases"][key] = dict(scene=jax.tree.map(np.asarray, scene), cfg=cfg, accs=accs)
+    # The gradients after every step: a jitted render in this JAX version
+    # breaks a later progressive.step in the process.
+    for key in set(built) & set(GRAD_KEYS):
+        side["grads"][key] = jax_gradient_side(*built[key])
     if not shared:
         with open(out, "wb") as f:
             pickle.dump(side, f)
@@ -205,13 +234,13 @@ def jax_side(tmp_path_factory):
     """The JAX side, from one child for the cases that do not reach the
     flat engine and one child for each case that does: in this JAX version
     a second scene's flat-engine step in a process fails ("Execution
-    supplied 25 buffers but compiled program expected 30"). Three children
-    run at a time."""
+    supplied 25 buffers but compiled program expected 30"); and one for
+    ``SLOW_GRAD``'s gradient alone. Three children run at a time."""
     tmp = tmp_path_factory.mktemp("jax_direct")
     path = os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")]))
     # The children read no scene cache and write none: every build is fresh.
     env = {**os.environ, "PYTHONPATH": path, "TRACER_NO_SCENE_CACHE": "1"}
-    groups = [[]] + [[k] for k in FLAT_CASES]
+    groups = [[]] + [[k] for k in FLAT_CASES] + [[GRAD_ONLY, SLOW_GRAD]]
     outs = [tmp / f"jax_side_{i}.pkl" for i in range(len(groups))]
 
     def run(i):
@@ -517,21 +546,22 @@ def test_subdivs_one_is_the_zero_jitter_frame(jax_side):
     assert torch.equal(plain.view(torch.int32), integrator.render_sample(one, cfg).view(torch.int32))
 
 
-@pytest.mark.parametrize("key", ["W1 E6", "W2 E2", "W3 E3 texture", "W5 E5 Cornell Box",
-                                 "W6 E1 Bunny", "W5 E3 shadowed bunny"])
+@pytest.mark.parametrize("key", GRAD_KEYS)
 def test_grad_scene_refuses_new_direct_configs(jax_side, key):
-    """Gradients of the new direct configurations (lights other than
+    """(The name is from when ``grad_scene`` refused these configurations.)
+    The configurations it once refused (lights other than
     ``directional_n``, shadow rays, ambients other than ``plain_scaled``,
     continuation shaders, analytic triangles, textures, subdivs > 1, no
-    mesh) are not ported: ``grad_scene`` raises instead of returning a
-    wrong one."""
-    side = jax_side["cases"][key]
-    scene = convert.scene_from_arrays(side["scene"], "cpu")
-    cfg = _port_cfg(side["cfg"])
-    assert G.not_differentiated(scene, cfg)
-    target = torch.zeros((cfg.width * cfg.height, 3))
-    with pytest.raises(NotImplementedError, match="gradients of"):
-        G.grad_scene(scene, cfg, target)
+    mesh) are differentiated now: on this module's buffers, the gradient
+    of each case equals the JAX package's by the checks of
+    ``tests/_direct_grad.py`` (leaf by leaf under the mask of disputed
+    pixels at rtol 3e-4, the camera and material leaves of the unmasked
+    gradient at rtol 1e-3, two runs bitwise)."""
+    side = jax_side["grads"][key]
+    scene, cfg = convert.scene_from_arrays(side["scene"], "cpu"), _port_cfg(side["cfg"])
+    assert G.not_differentiated(scene, cfg) == []
+    g = check_case(key, side)
+    assert any(x.any() for x in g.values())
 
 
 if __name__ == "__main__":

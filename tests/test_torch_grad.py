@@ -246,14 +246,23 @@ def test_embedded_jax_constants(jax_side):
 
 
 def test_grad_scene_needs_single_bounce(port_side):
-    """Path-mode gradients are ported, the sun's next-event estimation too
-    (``tests/test_torch_sun.py`` holds it against the JAX package); a
-    configuration that the port still does not differentiate raises before
-    any work: direct mode with shadow rays (W5 E3's ``directional`` light)."""
+    """Every registry row is differentiated now (``not_differentiated`` is
+    [] for all 44; ``tests/test_torch_direct_grad*.py`` hold the direct
+    rows to the JAX package); what the renderer does not serve still
+    raises before any work: a direct-mode light kind outside the registry
+    (``area_mc``) and the ``bvh8`` engine."""
+    from tracer_torch.scenes.build import scene_config
+    from tracer_torch.scenes.registry import get_scenes
+
+    for desc in get_scenes():
+        assert G.not_differentiated(None, scene_config(desc)) == [], desc.name
     scene, cfg = port_side[0], port_side[1]
-    shadowed = dataclasses.replace(cfg, lights=("directional",), shadows=True)
-    with pytest.raises(NotImplementedError, match="shadow rays"):
-        G.grad_scene(scene, shadowed, torch.zeros((W * H, 3)))
+    target = torch.zeros((W * H, 3))
+    for outside, why in ((dataclasses.replace(cfg, lights=("area_mc",)), "lights"),
+                         (dataclasses.replace(cfg, traversal="bvh8"), "traversal 'bvh8'")):
+        assert G.not_differentiated(scene, outside)
+        with pytest.raises(NotImplementedError, match=why):
+            G.grad_scene(scene, outside, target)
 
 
 if __name__ == "__main__":

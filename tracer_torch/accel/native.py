@@ -1,10 +1,14 @@
-"""ctypes bindings for the repository's native C++ LBVH builder
-(``native/lbvh.cpp``; port of the LBVH half of ``tracer.accel.native``).
+"""ctypes bindings for the repository's native C++ builders (port of
+``tracer.accel.native``): the LBVH (``native/lbvh.cpp``) and the BSP
+(``native/bsp.cpp``).
 
-The port compiles the shared source itself, with
-``g++ -O3 -fopenmp -shared -fPIC``, into ``build/tracer_torch/`` — never
-into ``native/``. Its output has the layout of ``lbvh.build`` and the same
-primitive order and node count (held against it in the tests).
+The port compiles the shared sources itself into ``build/tracer_torch/``,
+never into ``native/``: the LBVH with ``g++ -O3 -fopenmp -shared -fPIC``,
+the BSP with the JAX package's ``-O3 -march=native -ffp-contract=off``
+(no fused multiply-adds, so it rounds as the NumPy builder does). Their
+outputs have the layouts of ``lbvh.build`` and ``bsp.build`` and are held
+against them bit for bit in the tests. A failed compile or build raises;
+nothing falls back to the NumPy builders.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from tracer_torch._build import REPO_ROOT, shared_library
 from tracer_torch.accel.lbvh import BvhBuffers
 
 _SRC = REPO_ROOT / "native" / "lbvh.cpp"
+_BSP_SRC = REPO_ROOT / "native" / "bsp.cpp"
 _N_STAGES = 5  # per-stage milliseconds the builder reports (not read here)
 
 
@@ -70,3 +75,49 @@ def build(prim_lo: np.ndarray, prim_hi: np.ndarray,
         count=count[:m].copy(),
         prim_ids=prim_ids,
     )
+
+
+@functools.cache
+def _bsp_lib() -> ctypes.CDLL:
+    path, _ = shared_library(
+        "bsp", ["g++", "-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC"],
+        [_BSP_SRC])
+    lib = ctypes.CDLL(str(path))
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64 = ctypes.c_int64
+    lib.bsp_build.restype = i64
+    lib.bsp_build.argtypes = [f32p, f32p, i64, ctypes.c_int32, ctypes.c_int32]
+    lib.bsp_counts.restype = None
+    lib.bsp_counts.argtypes = [i64, ctypes.POINTER(i64), ctypes.POINTER(i64)]
+    lib.bsp_copy.restype = None
+    lib.bsp_copy.argtypes = [i64, i32p, f32p, i32p, i32p, i32p, i32p, i32p, f32p, f32p]
+    lib.bsp_release.restype = None
+    lib.bsp_release.argtypes = [i64]
+    return lib
+
+
+def bsp_build(prim_lo: np.ndarray, prim_hi: np.ndarray, max_depth: int,
+              max_objects: int) -> dict:
+    """Native BSP build; the arrays of ``bsp.BspBuffers`` by field name."""
+    lib = _bsp_lib()
+    lo = np.ascontiguousarray(prim_lo, np.float32)
+    hi = np.ascontiguousarray(prim_hi, np.float32)
+    h = lib.bsp_build(lo, hi, lo.shape[0], max_depth, max_objects)
+    if h < 0:
+        raise RuntimeError("native BSP build failed")
+    try:
+        nodes, prims = ctypes.c_int64(), ctypes.c_int64()
+        lib.bsp_counts(h, ctypes.byref(nodes), ctypes.byref(prims))
+        m, p = int(nodes.value), int(prims.value)
+        f = {k: np.empty(m, np.int32) for k in ("axis", "left", "right", "first", "count")}
+        f["plane"] = np.empty(m, np.float32)
+        prim_ids = np.empty(max(p, 1), np.int32)
+        bbox_lo, bbox_hi = np.empty(3, np.float32), np.empty(3, np.float32)
+        lib.bsp_copy(h, f["axis"], f["plane"], f["left"], f["right"], f["first"], f["count"],
+                     prim_ids, bbox_lo, bbox_hi)
+    finally:
+        lib.bsp_release(h)
+    return dict(axis=f["axis"], plane=f["plane"], left=f["left"], right=f["right"],
+                first=f["first"], count=f["count"], prim_ids=prim_ids[:p],
+                bbox_lo=bbox_lo, bbox_hi=bbox_hi)

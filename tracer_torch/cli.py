@@ -4,9 +4,11 @@ control panel (``reference/src/control_panel.rs``) as flags.
 Every flag of ``tracer.cli`` with the same meaning, plus ``--device``: the
 render runs on the card (``tracer_torch.util.self_test`` probes it first
 and stops with one sentence when there is none) unless ``--device cpu``
-asks for the CPU. Flags whose paths are not ported yet (``--sharded``,
-``--traversal bvh2|bvh8``, a BSP walk) stop before any work with a one-line
-message and exit code 2.
+asks for the CPU. ``--traversal bvh2`` runs the per-ray BVH walk, and
+``--traversal bsp`` the BSP rows' default execution (the treelet engines),
+as in the JAX package. Flags whose paths are not ported yet (``--sharded``,
+``--traversal bvh8``) stop before any work with a one-line message and
+exit code 2.
 
 Usage:
   python -m tracer_torch.cli --list
@@ -138,7 +140,8 @@ def interactive_loop(scene, cfg, args, dev) -> int:
             elif cmd == "move":
                 restart(camera=CameraController().run(scene.camera, rest[0]))
             elif cmd == "uv":
-                restart(**uniforms(uv_scale=(float(rest[0]), float(rest[1]))))
+                restart(**uniforms(uv_scale=torch.tensor(
+                    (float(rest[0]), float(rest[1])), device=dev)))
             elif cmd == "tex":
                 restart(**uniforms(use_texture=int(rest[0])))
             elif cmd == "r":
@@ -251,7 +254,7 @@ def main(argv=None) -> int:
     if args.texture_mode >= 0:
         u = dataclasses.replace(u, use_texture=args.texture_mode)
     if args.uv_scale:
-        u = dataclasses.replace(u, uv_scale=tuple(args.uv_scale))
+        u = dataclasses.replace(u, uv_scale=torch.tensor(args.uv_scale, device=dev))
     scene = dataclasses.replace(scene, uniforms=u)
 
     state = None

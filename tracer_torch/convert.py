@@ -4,9 +4,10 @@
 package's ``Scene`` whose leaves are NumPy arrays (for example
 ``jax.tree.map(np.asarray, scene)``) and returns the port's ``Scene`` on
 ``device``, analytic spheres, planes and triangles, the environment map,
-the plane texture and the stratified jitters included (no mesh for a
-meshless scene, and no treelet BVH for a mesh on the brute-force engine),
-so both implementations can be run on the very same buffers.
+the plane texture, the stratified jitters and the structures of the
+``bvh2`` and BSP walks included (no mesh for a meshless scene, and no
+treelet BVH for a mesh on the brute-force engine), so both
+implementations can be run on the very same buffers.
 ``grads_to_arrays`` reads a scene gradient of either package the same way,
 so the two can be compared leaf by leaf. Both only read attributes and
 import nothing of JAX.
@@ -17,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tracer_torch.accel import bsp as bsp_mod
+from tracer_torch.accel import traverse
 from tracer_torch.accel.treelet import TreeletBvh
 from tracer_torch.diff.grad import FLOAT_LEAVES, leaf
 from tracer_torch.geometry.device import (AnalyticTriangles, GeometryBuffers, MaterialTable,
@@ -108,13 +111,15 @@ def scene_from_arrays(obj, device) -> Scene:
             selection1=int(uni.selection1),
             selection2=int(uni.selection2),
             use_texture=int(uni.use_texture),
-            uv_scale=tuple(float(x) for x in np.asarray(uni.uv_scale)),
+            uv_scale=_t(uni.uv_scale, device),
             iteration=int(uni.iteration),
         ),
         geom=geom,
         materials=materials,
         light_indices=light_indices,
         tb=None if obj.tb is None else treelet_from_arrays(obj.tb, device),
+        bvh=None if obj.bvh is None else traverse.to_device(obj.bvh, device),
+        bsp=None if obj.bsp is None else bsp_mod.to_device(obj.bsp, device),
         planes=planes,
         env=_texture(obj.env, device),
         spheres=spheres,

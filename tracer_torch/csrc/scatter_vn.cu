@@ -6,15 +6,17 @@
 // from the custom VJP of fetch_tri_rows. Plain C interface, loaded with
 // ctypes from tracer_torch/kernels/scatter_vn.py, which also holds the
 // plain-PyTorch twin (segment_place_reference) and CHUNK_ROWS, the chunk
-// length that the wrapper passes in here.
+// length that the wrapper passes in here: 256, or 32 or 512, the other
+// lengths the card tests run. Each is its own instance of pass 1, built at
+// compile time (the chunk's shared-memory stage and the thread count are
+// sized by it); any other length is refused.
 //
 // Contract: ids (m,) i32 ascending; vals (m, 6) f32 row-major (columns: the
 // corner cotangent of the vertex xyz, then of the normal xyz); out (v, 6)
 // f32; rows with ids outside [0, v) add nothing.
 //
 // Order of the additions (fixed; independent of the launch geometry):
-//   * the stream is cut into chunks of R = chunk_rows rows (the last one
-//     shorter);
+//   * the stream is cut into chunks of R rows (the last one shorter);
 //   * within a chunk, each vertex's rows are summed in stream order from
 //     0.0f: one partial per (vertex, chunk) that the vertex has rows in;
 //   * out[j] is vertex j's partials summed in chunk order from 0.0f, and 0
@@ -63,18 +65,19 @@
 namespace {
 
 constexpr int kCols = 6;
-constexpr int kMaxRows = 512;      // the longest chunk: one thread per row
 constexpr int kSpanThreads = 256;  // pass 2: chunk heads probed per step
 
-__global__ void __launch_bounds__(kMaxRows)
+// Pass 1 for chunks of R rows, one thread per row.
+template <int R>
+__global__ void __launch_bounds__(R)
     chunk_sums_kernel(const int* __restrict__ ids,
                       const float* __restrict__ vals, float* __restrict__ out,
                       float* __restrict__ head, float* __restrict__ tail,
                       long long m, int v) {
-  __shared__ __align__(16) float s_vals[kMaxRows * kCols];
-  __shared__ int s_ids[kMaxRows];
-  __shared__ unsigned run_ends[kMaxRows / 32];  // bit t: row t ends its run in the chunk
-  const int R = blockDim.x;
+  static_assert(R % 32 == 0 && R <= 1024, "one warp-aligned CTA per chunk");
+  __shared__ __align__(16) float s_vals[R * kCols];
+  __shared__ int s_ids[R];
+  __shared__ unsigned run_ends[R / 32];  // bit t: row t ends its run in the chunk
 
   const int t = threadIdx.x;
   const long long c = blockIdx.x;
@@ -82,13 +85,18 @@ __global__ void __launch_bounds__(kMaxRows)
   const int n = static_cast<int>(min(static_cast<long long>(R), m - base));
 
   // Stage the chunk: the payload with 16-byte loads (a chunk starts at a
-  // multiple of R * 24 bytes, and R is even), then the ids.
+  // multiple of R * 24 bytes, and R is even), then the ids. The loops stay
+  // rolled: unrolled for a fixed R, they hold their loads in flight in
+  // registers (48 per thread at R = 256 against 31 rolled, and a slower
+  // pass on an H100; `b2_turns.py` times it).
   const float* src = vals + base * kCols;
   const int n4 = n * kCols / 4;
+#pragma unroll 1
   for (int i = t; i < n4; i += R) {
     reinterpret_cast<float4*>(s_vals)[i] =
         __ldg(reinterpret_cast<const float4*>(src) + i);
   }
+#pragma unroll 1
   for (int i = n4 * 4 + t; i < n * kCols; i += R) s_vals[i] = __ldg(src + i);
   if (t < n) s_ids[t] = __ldg(ids + base + t);
   __syncthreads();
@@ -179,29 +187,42 @@ __global__ void __launch_bounds__(kSpanThreads)
   if (t < kCols) out[static_cast<long long>(id) * kCols + t] = acc;
 }
 
+template <int R>
+void launch_chunk_sums(unsigned n_chunks, cudaStream_t s, const int* ids, const float* vals,
+                       float* out, float* head, float* tail, long long m, int v) {
+  chunk_sums_kernel<R><<<n_chunks, R, 0, s>>>(ids, vals, out, head, tail, m, v);
+}
+
 }  // namespace
 
 // Clears out and launches both passes on `stream`; returns the first error.
 // ids (m,) i32 sorted, vals (m, 6) f32 (16-byte aligned), out (v, 6) f32,
 // head and tail (max(1, ceil(m / chunk_rows)), 6) f32 scratch; all
-// contiguous. chunk_rows: 256 (CHUNK_ROWS), or 32 or 512, the other lengths
-// the tests run.
+// contiguous. chunk_rows: 256 (CHUNK_ROWS), 32 or 512; any other length
+// returns cudaErrorInvalidValue before any work.
 extern "C" int segment_place_launch(const int* ids, const float* vals,
                                     float* out, float* head, float* tail,
                                     long long m, long long v, int chunk_rows,
                                     void* stream) {
-  if (v <= 0) return static_cast<int>(cudaSuccess);
-  if (m < 0 || v > INT_MAX ||
-      (chunk_rows != 32 && chunk_rows != 256 && chunk_rows != kMaxRows)) {
+  if (chunk_rows != 32 && chunk_rows != 256 && chunk_rows != 512) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (v <= 0) return static_cast<int>(cudaSuccess);
+  if (m < 0 || v > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const long long n_chunks = (m + chunk_rows - 1) / chunk_rows;
   if (n_chunks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(v) * kCols * sizeof(float), s);
   if (err != cudaSuccess || n_chunks == 0) return static_cast<int>(err);
-  chunk_sums_kernel<<<static_cast<unsigned>(n_chunks), chunk_rows, 0, s>>>(
-      ids, vals, out, head, tail, m, static_cast<int>(v));
+  const unsigned grid = static_cast<unsigned>(n_chunks);
+  const int vi = static_cast<int>(v);
+  if (chunk_rows == 32) {
+    launch_chunk_sums<32>(grid, s, ids, vals, out, head, tail, m, vi);
+  } else if (chunk_rows == 256) {
+    launch_chunk_sums<256>(grid, s, ids, vals, out, head, tail, m, vi);
+  } else {
+    launch_chunk_sums<512>(grid, s, ids, vals, out, head, tail, m, vi);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
   span_sums_kernel<<<static_cast<unsigned>(n_chunks - 1), kSpanThreads, 0, s>>>(

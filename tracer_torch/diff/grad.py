@@ -2,15 +2,18 @@
 ``tracer.diff.grad``).
 
 The forward transport (``tracer_torch.render.integrator``) is
-differentiable end to end: the traversal returns integer ids under
-``no_grad`` and every hit attribute is re-derived from them, so reverse
-mode gives pixel gradients with respect to the camera, the mesh vertices
-and normals, the materials, the analytic spheres and planes and the
-environment map, through every bounce of path mode (next-event
-estimation, the mirror, the dielectric, Russian roulette and the firefly
-clamp included). Discrete events (which triangle a pixel sees, roulette
-and Fresnel picks, light draws) are held fixed by the sample, as in the
-JAX package: the estimator is biased at silhouettes.
+differentiable end to end, in both modes and on every registry row: the
+traversal returns integer ids under ``no_grad`` and every hit attribute
+is re-derived from them, so reverse mode gives pixel gradients with
+respect to the camera, the mesh vertices and normals, the materials, the
+analytic spheres, planes and triangles, the environment map, the plane
+texture and its ``uv_scale``, and direct mode's stratified jitters:
+through every direct arm and light (shadow rays included) and every
+bounce of path mode (next-event estimation, the mirror, the dielectric,
+Russian roulette and the firefly clamp included). Discrete events (which
+triangle a pixel sees, which lanes a shadow ray blocks, roulette and
+Fresnel picks, light draws) are held fixed by the sample, as in the JAX
+package: the estimator is biased at silhouettes and shadow edges.
 """
 
 from __future__ import annotations
@@ -19,17 +22,19 @@ from dataclasses import replace
 
 import torch
 
-from tracer_torch.geometry.device import SHADER_LAMBERTIAN, GeometryBuffers, MaterialTable, Planes
+from tracer_torch.geometry.device import AnalyticTriangles, GeometryBuffers, MaterialTable, Planes
 from tracer_torch.render import integrator
 from tracer_torch.render.camera import Camera
-from tracer_torch.render.scene import Scene, SceneConfig, Spheres
+from tracer_torch.render.scene import Scene, SceneConfig, Spheres, Uniforms
 from tracer_torch.render.texture import TextureBuf
 
 # The float leaves of a scene, by their path in the JAX package's ``Scene``
-# pytree: what ``grad_scene`` differentiates. The spheres, planes and
-# environment map are leaves only where the scene has them.
+# pytree: what ``grad_scene`` differentiates. The mesh, spheres, planes,
+# analytic triangles, environment map, plane texture and jitters are leaves
+# only where the scene has them.
 FLOAT_LEAVES = (
     "camera.eye", "camera.target", "camera.up", "camera.constant", "camera.aspect",
+    "uniforms.uv_scale",
     "geom.vertices", "geom.normals", "geom.tri_table",
     "materials.diffuse", "materials.emission", "materials.specular",
     "materials.shininess", "materials.ior",
@@ -37,17 +42,18 @@ FLOAT_LEAVES = (
     "spheres.extinction",
     "planes.position", "planes.normal", "planes.tangent", "planes.binormal",
     "planes.base_color",
-    "env.data",
+    "tris.verts", "tris.base_color",
+    "env.data", "texture.data", "jitters",
 )
 
 
 def leaf(obj, key: str):
-    """The leaf at ``key`` (for example ``"camera.eye"``) of a scene or of
-    a scene gradient; ``None`` where the part (``spheres``, ``planes``,
-    ``env``) is absent."""
-    part, name = key.split(".")
-    part = getattr(obj, part)
-    return None if part is None else getattr(part, name)
+    """The leaf at ``key`` (for example ``"camera.eye"`` or ``"jitters"``)
+    of a scene or of a scene gradient; ``None`` where the part is absent."""
+    part, _, name = key.rpartition(".")
+    if part:
+        obj = getattr(obj, part)
+    return None if obj is None else getattr(obj, name)
 
 
 def float_leaves(scene) -> tuple:
@@ -56,45 +62,32 @@ def float_leaves(scene) -> tuple:
 
 
 def _parts(leaves: dict) -> dict:
-    """{"camera.eye": x, ...} -> {"camera": {"eye": x, ...}, ...}."""
+    """{"camera.eye": x, "jitters": j, ...} -> {"camera": {"eye": x, ...},
+    "": {"jitters": j}}."""
     parts: dict = {}
     for key, x in leaves.items():
-        part, name = key.split(".")
+        part, _, name = key.rpartition(".")
         parts.setdefault(part, {})[name] = x
     return parts
 
 
 def with_leaves(scene: Scene, leaves: dict) -> Scene:
     """``scene`` with the leaves named in ``leaves`` replaced."""
-    return replace(scene, **{part: replace(getattr(scene, part), **kw)
-                             for part, kw in _parts(leaves).items()})
+    parts = _parts(leaves)
+    top = parts.pop("", {})
+    return replace(scene, **top, **{part: replace(getattr(scene, part), **kw)
+                                    for part, kw in parts.items()})
 
 
 def not_differentiated(scene: Scene, cfg: SceneConfig) -> list[str]:
-    """What of this scene and configuration the gradients do not cover yet
-    ([] when they do): direct mode only as ``project.wgsl`` configures it
-    (the ``directional_n`` light, no shadow rays, the ``plain_scaled``
-    ambient term, the Lambertian, one sample per pixel), and in either mode
-    a triangle mesh, no analytic triangles and no plane texture."""
-    why = []
-    if cfg.mode == "direct":
-        if any(k != "directional_n" for k in cfg.lights):
-            why.append(f"lights {cfg.lights}")
-        if cfg.shadows:
-            why.append("shadow rays")
-        if cfg.ambient != "plain_scaled":
-            why.append(f"ambient {cfg.ambient!r}")
-        if set(cfg.possible_shaders) - {SHADER_LAMBERTIAN}:
-            why.append(f"shaders {cfg.possible_shaders} in direct mode")
-        if cfg.subdivs > 1 or scene.jitters is not None:
-            why.append(f"subdivs {cfg.subdivs}")
-    if scene.geom is None:
-        why.append("no triangle mesh")
-    if scene.tris is not None:
-        why.append("analytic triangles")
-    if scene.texture is not None or cfg.plane_texture:
-        why.append("plane textures")
-    return why
+    """What of this configuration the gradients do not cover ([] when they
+    do, as for every row of the registry): what the renderer itself does
+    not serve (``scenes.build.unsupported``, for example the ``bvh8``
+    engine or a direct-mode light kind outside ``DIRECT_LIGHTS``). It
+    guards configurations made outside the registry."""
+    from tracer_torch.scenes.build import unsupported
+
+    return unsupported(None, cfg)
 
 
 def _check_differentiated(scene: Scene, cfg: SceneConfig) -> None:
@@ -136,21 +129,30 @@ def scene_grads(scene: Scene, loss_fn) -> Scene:
     wrt = [k for k in keys if leaves[k].requires_grad]
     with torch.enable_grad():
         loss = loss_fn(with_leaves(scene, leaves))
-        grads = torch.autograd.grad(loss, [leaves[k] for k in wrt], allow_unused=True)
+        # A frame of background alone (W1 E1-E3) reaches no leaf.
+        grads = torch.autograd.grad(loss, [leaves[k] for k in wrt], allow_unused=True) \
+            if loss.requires_grad else [None] * len(wrt)
     out = {k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(wrt, grads)}
-    out["geom.tri_table"] = torch.zeros_like(leaves["geom.tri_table"])
+    if "geom.tri_table" in leaves:
+        out["geom.tri_table"] = torch.zeros_like(leaves["geom.tri_table"])
     parts = _parts(out)
-    sp, pl = parts.get("spheres"), parts.get("planes")
+    geom, mats, sp, pl, tr = (parts.get(p) for p in ("geom", "materials", "spheres", "planes",
+                                                       "tris"))
     return Scene(
         camera=Camera(**parts["camera"]),
-        uniforms=None,
-        geom=GeometryBuffers(indices=None, mat_ids=None, **parts["geom"]),
-        materials=MaterialTable(illum=None, **parts["materials"]),
+        uniforms=Uniforms(selection1=None, selection2=None, use_texture=None,
+                          iteration=None, **parts.get("uniforms", {})),
+        geom=None if geom is None else GeometryBuffers(indices=None, mat_ids=None, **geom),
+        materials=None if mats is None else MaterialTable(illum=None, **mats),
         light_indices=None,
         tb=None,
         spheres=None if sp is None else Spheres(shader=None, **sp),
         planes=None if pl is None else Planes(shader=None, textured=None, **pl),
+        tris=None if tr is None else AnalyticTriangles(shader=None, **tr),
         env=None if scene.env is None else TextureBuf(data=out["env.data"], kind=scene.env.kind),
+        texture=None if scene.texture is None else TextureBuf(data=out["texture.data"],
+                                                              kind=scene.texture.kind),
+        jitters=out.get("jitters"),
     )
 
 
@@ -158,14 +160,15 @@ def grad_scene(scene: Scene, cfg: SceneConfig, target, num_samples: int = 1) -> 
     """Gradient of the L2 loss with respect to every float leaf of the scene.
 
     Returns a ``Scene`` of gradients: camera eye, target, up, constant and
-    aspect; geometry vertices and normals (``tri_table`` is derived data
-    and gets zeros); materials diffuse, emission, specular, shininess and
-    ior; where the scene has them, the spheres' center, radius, base colour,
-    ior and extinction, the planes' position, normal, tangent, binormal and
-    base colour, and the environment map's texels. Leaves the loss does not
-    reach get zeros; integer leaves, the uniforms and the accel structure
-    are ``None``. Raises ``NotImplementedError`` for what
-    ``not_differentiated`` lists.
+    aspect; ``uniforms.uv_scale``; where the scene has them, the geometry's
+    vertices and normals (``tri_table`` is derived data and gets zeros),
+    the materials' diffuse, emission, specular, shininess and ior, the
+    spheres' center, radius, base colour, ior and extinction, the planes'
+    position, normal, tangent, binormal and base colour, the analytic
+    triangles' vertices and base colour, the environment map's and the
+    plane texture's texels, and the jitters. Leaves the loss does not reach
+    get zeros; integer leaves and the accel structures are ``None``. Raises
+    ``NotImplementedError`` for what ``not_differentiated`` lists.
     """
     _check_differentiated(scene, cfg)
     return scene_grads(scene, lambda s: l2_loss(s, cfg, target, num_samples))
@@ -180,6 +183,8 @@ def directional_derivative_ad(scene, cfg, target, get, set_, direction,
     with torch.enable_grad():
         moved = get(scene).detach() + theta * direction
         loss = l2_loss(set_(scene, moved), cfg, target, num_samples)
+        if not loss.requires_grad:  # the loss does not reach the leaf
+            return 0.0
         (g,) = torch.autograd.grad(loss, theta)
     return float(g)
 

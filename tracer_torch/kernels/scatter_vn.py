@@ -34,10 +34,11 @@ REFERENCE_CALLS = 0
 
 SOURCE = CSRC / "scatter_vn.cu"
 COLS = 6  # vertex xyz + normal xyz cotangents
-# Rows per chunk of the fixed summation order; the kernel takes it as an
-# argument (one CTA thread per row) and also accepts 32 and 512, which the
-# card tests run.
+# Rows per chunk of the fixed summation order (one CTA thread per row). The
+# kernel is compiled for 256 and for 32 and 512, which the card tests run;
+# the wrapper refuses any other length.
 CHUNK_ROWS = 256
+KERNEL_CHUNK_ROWS = (32, 256, 512)
 
 
 @functools.cache
@@ -77,6 +78,9 @@ def segment_place(sids: torch.Tensor, svals: torch.Tensor, V: int) -> torch.Tens
         raise ValueError(f"scatter_vn: ids on {sids.device}, payload on {svals.device}")
     if V < 0:
         raise ValueError(f"scatter_vn: V = {V}")
+    if CHUNK_ROWS not in KERNEL_CHUNK_ROWS:
+        raise ValueError(f"scatter_vn: the kernel is built for chunks of {KERNEL_CHUNK_ROWS} "
+                         f"rows, not {CHUNK_ROWS}")
     ids = sids.contiguous()
     vals = svals.contiguous()
     if vals.data_ptr() % 16:

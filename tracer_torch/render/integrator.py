@@ -56,7 +56,8 @@ from dataclasses import dataclass, fields, replace
 
 import torch
 
-from tracer_torch.accel import flat, packet
+from tracer_torch.accel import bsp as bsp_mod
+from tracer_torch.accel import flat, packet, traverse
 from tracer_torch.geometry.device import (
     SHADER_BASECOLOR,
     SHADER_GLOSSY,
@@ -184,9 +185,10 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
     """Closest hit over the analytic spheres, planes and triangles and the
     triangle mesh, as the reference's sequential tmax-shrinking fold
     (``w8e3.wgsl:290-311``). The mesh goes through the brute-force engine
-    (``traversal == "brute"``), else through the flat engine in direct mode
-    and through the packet engine in path mode (incoherent bounces defeat
-    the flat engine's frustums).
+    (``traversal == "brute"``), the BSP walk (``"bsp"`` with
+    ``bsp_execution != "fast"``) or the ``bvh2`` walk, else through the
+    flat engine in direct mode and through the packet engine in path mode
+    (incoherent bounces defeat the flat engine's frustums).
 
     ``seed_t``: optional per-ray temporal upper-bound hint for the flat
     engine; exact whatever its quality (see
@@ -256,7 +258,7 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
             shader=torch.full((n,), shader, dtype=torch.int32, device=dev),
             albedo=planes.base_color[i].expand(n, 3),
             emission=z3,
-            uv=torch.stack([torch.abs(u), torch.abs(v)], dim=-1),
+            uv=torch.stack([vec.abs(u), vec.abs(v)], dim=-1),
             textured=(planes.textured[i] != 0).expand(n),
             is_mesh=no,
         )
@@ -292,6 +294,14 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         if trav == "brute":
             # Engines without caps always converge.
             _, tri = intersect.mesh_brute_force(sub, geom.vertices, geom.indices)
+            conv = yes
+        elif trav == "bsp":
+            _, tri, conv = bsp_mod.bsp_closest_hit(sub, scene.bsp, geom.vertices, geom.indices,
+                                                   with_conv=True)
+        elif trav == "bvh2":
+            # The JAX package flags no truncation of this walk.
+            _, tri = traverse.bvh_closest_hit(sub, scene.bvh, geom.vertices, geom.indices,
+                                              max_leaf=cfg.max_leaf)
             conv = yes
         elif trav != "bvh":
             raise NotImplementedError(f"traversal {trav!r} is not ported")
@@ -358,8 +368,9 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
 def _mesh_only_anyhit(scene: Scene, cfg: SceneConfig, rays: Rays):
     """Trimesh-only occlusion, ``intersect_trimesh_immediate_return`` as the
     holdout shader uses it (``w9e2.wgsl:514-538``): the brute-force engine's
-    any-hit (which always converges), or the flat engine's in direct mode
-    and the packet engine's in path mode; nothing blocks without a mesh.
+    any-hit (which always converges), the BSP or ``bvh2`` walk, or the flat
+    engine's in direct mode and the packet engine's in path mode; nothing
+    blocks without a mesh.
     Returns (blocked, converged)."""
     if scene.geom is None:
         no = torch.zeros(rays.o.shape[0], dtype=torch.bool, device=rays.o.device)
@@ -368,9 +379,16 @@ def _mesh_only_anyhit(scene: Scene, cfg: SceneConfig, rays: Rays):
     with torch.no_grad():
         srays = Rays(rays.o.detach(), rays.d.detach(), rays.tmin.detach(),
                      rays.tmax.detach())
+        geom = scene.geom
         if trav == "brute":
-            blocked = intersect.mesh_brute_force_anyhit(
-                srays, scene.geom.vertices, scene.geom.indices)
+            blocked = intersect.mesh_brute_force_anyhit(srays, geom.vertices, geom.indices)
+            return blocked, torch.ones_like(blocked)
+        if trav == "bsp":
+            return bsp_mod.bsp_any_hit(srays, scene.bsp, geom.vertices, geom.indices,
+                                       with_conv=True)
+        if trav == "bvh2":
+            blocked = traverse.bvh_any_hit(srays, scene.bvh, geom.vertices, geom.indices,
+                                           max_leaf=cfg.max_leaf)
             return blocked, torch.ones_like(blocked)
         if trav != "bvh":
             raise NotImplementedError(f"traversal {trav!r} is not ported")
@@ -487,8 +505,7 @@ def _plane_albedo(scene: Scene, cfg: SceneConfig, hit: Hit):
     mode = scene.uniforms.use_texture
     if not (cfg.plane_texture and scene.texture is not None) or mode == tex.TEX_NONE:
         return hit.albedo
-    uv = hit.uv * torch.tensor(scene.uniforms.uv_scale, dtype=torch.float32,
-                               device=hit.uv.device)
+    uv = hit.uv * scene.uniforms.uv_scale
     u = uv[..., 0] - torch.floor(uv[..., 0])
     v = uv[..., 1] - torch.floor(uv[..., 1])
     return vec.where(hit.textured, tex.sample(scene.texture, u, v, mode), hit.albedo)

@@ -3,9 +3,11 @@
 
 ``SceneConfig`` is the JAX package's frozen configuration, field for field
 (the analog of the reference's per-scene WGSL shader). ``Scene`` holds the
-device buffers the ported path reads; ``Uniforms`` holds the runtime knobs
-as plain Python ints (PyTorch runs eagerly, so there is nothing to trace
-and no reason to keep them on the device).
+device buffers the ported path reads; ``Uniforms`` holds the runtime knobs:
+the integer ones as plain Python ints (PyTorch runs eagerly, so there is
+nothing to trace and no reason to keep them on the device), and
+``uv_scale`` as a float32 tensor on the scene's device, since it is a float
+leaf that gradients reach, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import Optional
 
 import torch
 
+from tracer_torch.accel.bsp import BspBuffers
+from tracer_torch.accel.lbvh import BvhBuffers
 from tracer_torch.accel.treelet import TreeletBvh
 from tracer_torch.geometry.device import AnalyticTriangles, GeometryBuffers, MaterialTable, Planes
 from tracer_torch.render.camera import Camera
@@ -45,7 +49,7 @@ class Uniforms:
     selection1: int = 0  # sphere/mesh material override
     selection2: int = 0  # other material override
     use_texture: int = 0  # TextureUse mode
-    uv_scale: tuple = (1.0, 1.0)
+    uv_scale: Optional[torch.Tensor] = None  # (2,) f32 on the scene's device
     iteration: int = 0  # progressive frame index (u32-valued)
 
 
@@ -114,6 +118,10 @@ class Scene:
     # Treelet BVH of the flat and packet engines; None on the brute-force
     # route (meshes of 64 triangles or fewer) and without a mesh.
     tb: Optional[TreeletBvh] = None
+    # The binary BVH of the ``bvh2`` walk and the BSP tree of the BSP walk
+    # (``bsp_execution != "fast"``), as tensors; None elsewhere.
+    bvh: Optional[BvhBuffers] = None
+    bsp: Optional[BspBuffers] = None
     planes: Optional[Planes] = None  # analytic planes (None: no planes)
     env: Optional[TextureBuf] = None  # environment map (None: bg_color)
     spheres: Optional[Spheres] = None  # analytic spheres (None: no spheres)

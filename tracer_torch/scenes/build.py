@@ -4,14 +4,17 @@
 Uploads the analytic spheres, planes and triangles; loads the model (or its
 procedural stand-in; a missing model without one raises
 ``FileNotFoundError``, as in the JAX package); for meshes of more than 64
-triangles builds the LBVH with the native C++ code, cuts it into treelets
-and gathers the block table on the device, while smaller meshes take the
-brute-force engine and get no acceleration structure, as in the JAX
-package. The mesh and the treelet cut go through the disk cache
+triangles builds what the traversal walks, as the JAX package does: for
+the treelet engines (``bvh``, and ``bsp`` with ``bsp_execution="fast"``)
+the LBVH with the native C++ code, cut into treelets, with the block table
+gathered on the device; for ``bvh2`` the binary LBVH; for the BSP walk
+the BSP tree (native C++ builder). Smaller meshes take the brute-force
+engine and get no acceleration structure. The mesh and the treelet cut go through the disk cache
 (``tracer_torch.scenes.cache``). Reads the environment map and the plane
 texture (a missing file leaves it out, with the JAX package's note on
-stderr) and computes direct mode's stratified jitters. Rows the port does
-not cover yet raise ``NotImplementedError`` before any work is done.
+stderr) and computes direct mode's stratified jitters. Configurations the
+port does not serve (``unsupported``) raise ``NotImplementedError`` before
+any work is done.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import time
 
 import torch
 
-from tracer_torch.accel import lbvh
+from tracer_torch.accel import bsp as bsp_mod
+from tracer_torch.accel import lbvh, traverse
 from tracer_torch.accel import treelet as treelet_mod
 from tracer_torch.geometry import obj as obj_mod
 from tracer_torch.geometry.device import AnalyticTriangles, Planes, upload_mesh
@@ -76,22 +80,22 @@ AMBIENTS = ("mix", "mix_ka", "plain", "plain_scaled")
 
 
 def unsupported(desc: SceneDescriptor, cfg: SceneConfig) -> list[str]:
-    """Why this row is outside the ported slices ([] when it is inside).
+    """Why this configuration is outside what the port serves ([] when it
+    is inside; ``desc`` is not read).
 
-    Ported: direct mode with every shader arm, the ``point_w1``,
+    Served: direct mode with every shader arm, the ``point_w1``,
     ``directional``, ``directional_n`` and ``area_all`` lights and the four
     ambient terms, textured planes and stratified jitter; path mode with
-    next-event estimation over the emissive triangles (``area_mc``) or no
-    lights; analytic spheres, planes and triangles and an optional mesh on
-    the treelet engines (``bvh``, or ``bsp`` executed by them) or the
+    next-event estimation over the emissive triangles (``area_mc``), the
+    sun (``directional``) or no lights; analytic spheres, planes and
+    triangles and an optional mesh on the treelet engines (``bvh``, or
+    ``bsp`` executed by them), the BSP walk, the ``bvh2`` walk or the
     brute-force engine; the ``while`` or the differentiable ``scan`` bounce
     loop with any ``remat`` policy; the environment map in either mode.
-    Still missing: the BSP walk and the ``bvh2``/``bvh8`` engines."""
+    Refused: the ``bvh8`` engine, a TPU layout that is not ported."""
     why = []
-    treelet = cfg.traversal == "bvh" or (
-        cfg.traversal == "bsp" and cfg.bsp_execution == "fast")
-    if not (treelet or cfg.traversal == "brute"):
-        why.append(f"traversal {cfg.traversal!r} ({cfg.bsp_execution})")
+    if cfg.traversal not in ("brute", "bvh", "bvh2", "bsp"):
+        why.append(f"traversal {cfg.traversal!r}")
     if cfg.loop not in ("while", "scan"):
         why.append(f"bounce loop {cfg.loop!r}")
     if cfg.remat not in ("none", "full", "dots"):
@@ -195,7 +199,7 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
         marks[name] = t - t0
         t0 = t
 
-    geom = materials = light_indices = tb = None
+    geom = materials = light_indices = tb = bvh = bsp = None
     if desc.model is not None:
         mesh = load_mesh(desc.model, desc.model_scale)
         mark("mesh_load")
@@ -203,8 +207,12 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
             # A dense sweep over a tiny mesh needs no acceleration structure.
             cfg = dataclasses.replace(cfg, traversal="brute")
         host = None
-        if cfg.traversal != "brute":
+        if cfg.traversal == "bvh" or (cfg.traversal == "bsp" and cfg.bsp_execution == "fast"):
             host = treelet_host(mesh, desc.bvh_leaf)
+        elif cfg.traversal == "bvh2":
+            bvh = traverse.to_device(lbvh.build_for_mesh(mesh, max_prims=desc.bvh_leaf), device)
+        elif cfg.traversal == "bsp":
+            bsp = bsp_mod.to_device(bsp_mod.build_for_mesh(mesh), device)
         mark("accel_host")
         geom, materials, light_indices = upload_mesh(mesh, device)
         mark("upload")
@@ -236,11 +244,14 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
     scene = Scene(
         camera=make_camera(**desc.camera, device=device),
         uniforms=Uniforms(selection1=desc.selection1, selection2=desc.selection2,
-                          use_texture=tex.TEX_DEFAULT if desc.texture else tex.TEX_NONE),
+                          use_texture=tex.TEX_DEFAULT if desc.texture else tex.TEX_NONE,
+                          uv_scale=f32((1.0, 1.0))),
         geom=geom,
         materials=materials,
         light_indices=light_indices,
         tb=tb,
+        bvh=bvh,
+        bsp=bsp,
         planes=planes,
         env=env,
         spheres=spheres,
