@@ -149,8 +149,9 @@ Phases (each raises on failure, so the script exits non-zero):
               equal, the time to first frame cold and warm with the build's
               stages, the ``--out`` PNG decoded by the port's reader equal
               to the display image rounded to 8 bits; ``--interactive`` over
-              a pipe (child process) on ``W1 E6``; ``--sharded`` exits
-              non-zero before any work;
+              a pipe (child process) on ``W1 E6``; ``--sharded`` (a group of
+              one rank) straight to 8 and checkpointed 4 + resumed 4, each
+              ``--out-npz`` bitwise equal to the unsharded image;
 13. hdr     — ``W9 E2 Bunny`` at 64x64 with ``tests/fixtures/tiny_env.hdr.png``
               as its environment, read by the build's RGBE loader: two
               frames, the card's accumulator equal to the CPU's bit for bit;
@@ -180,11 +181,42 @@ Phases (each raises on failure, so the script exits non-zero):
               packet + B3 on the same rays: ms per query, steps, and ids
               against packet + B3's (at most ``WALK_MAX_DIFFER`` of the
               lanes may differ, each at an equal t: a tie on a shared
-              edge).
+              edge);
+16. shard   — ``tracer_torch.parallel`` on a one-rank NCCL group: the
+              dragon through 1 + 3 ``sharded_step`` frames (B1 every frame,
+              never its twin; the gathered accumulator bitwise equal to 4
+              single-device frames) and 1 + 2 ``grad_scene_sharded`` steps
+              (B1 and B2 every step; each bitwise equal to ``grad_scene``),
+              ms/frame and ms/step by CUDA events beside phases 4 and 5;
+              then, in one process, the dragon frame and W9 E1's 512x512
+              frame rendered as 2 and 3 bands of rows and assembled, each
+              bitwise equal to the whole frame (B3 in every W9 E1 band);
+17. oracle  — the card's frames of ``ORACLE_CASES`` (the rows of
+              ``tests/test_oracle_parity.py`` whose assets exist, at 24x24
+              or 16x16: W1 E6, W1 E4, the W2 selections, W5 E2 and W6 E1 on
+              the bunny stand-in, W5 E5, W8 E3 at iterations 0, 1 and 3, W3
+              E3/E4 untextured and with ``seeded_texture``, W9 E1/E2 with
+              ``seeded_env``) against the port's CPU oracle at that file's
+              thresholds, or, where the JAX package's own renderer scores
+              below them, at its score (``ORACLE_JAX_SCORES``): the card's
+              first check that does not run through the port's renderer;
+18. jpeg    — ``tests/fixtures/texture_{420,grey,progressive}.jpg``
+              decoded on the host (ms beside the file's size), each equal to
+              the PIL decode stored beside it; ``W3 E3`` at 512x512 with the
+              4:2:0 fixture on the plane ``with_textured_plane`` marks
+              textured: 2 frames, the card's accumulator equal to the CPU's
+              bit for bit;
+19. bvh8    — ``Project: Bunny BSP`` with ``traversal="bvh8"`` at 512x512:
+              build time, 1 + 2 frames (ms/frame), no hand kernel and no
+              twin, the primary rays' ids against the treelet engine's (B1;
+              ``WALK_MAX_DIFFER``, ties at an equal t); then W9 E1's bounce-2
+              query by packet + B3, the ``bvh2`` walk and the ``bvh8`` walk
+              (ms per query; bvh8's ids against packet + B3's).
 
-B1's ``launches`` count the timed frames and steps of phases 4, 5, 10 and
-14 and the CLI's frames of phase 12; B2's the steps of phases 5, 9 and 14;
-B3's the frames and steps of phases 6, 9 and 11.
+B1's ``launches`` count the timed frames and steps of phases 4, 5, 10, 14
+and 16 and the CLI's frames of phase 12; B2's the steps of phases 5, 9, 14
+and 16; B3's the frames and steps of phases 6, 9 and 11 and the 3-band W9
+E1 frame of phase 16.
 
 Prints one JSON object of per-kernel results on the line before the last,
 and ``{"ok": true, "device": {...}}`` as the last line. Imports nothing of
@@ -327,6 +359,12 @@ DGRAD_CARD_RTOL = 1e-4
 # Phase 15: lanes of a walk's frame whose hit id may differ from the
 # treelet engine's (both hit one triangle's shared edge: a tie of t).
 WALK_MAX_DIFFER = 0.001
+# Phase 17: the JAX package's renderer against its own oracle on the
+# textured W3 cases of ``ORACLE_CASES`` (share of matching pixels at 24x24,
+# CPU; ``tests/test_torch_oracle.py`` recomputes them): below the 0.999 of
+# ``tests/test_oracle_parity.py``, so the port's score must reach these.
+ORACLE_JAX_SCORES = {"W3 E3 textured": 0.9722222222222222,
+                     "W3 E4 textured nearest": 0.9739583333333334}
 
 
 def seeded_env(rgbe: bool, seed: int = 0, shape=(32, 64)) -> np.ndarray:
@@ -882,6 +920,92 @@ def with_seeded_env(scene, desc, device):
     kind = texture.ENV_RGBE if desc.hdri_rgbe else texture.ENV_LDR
     env = torch.as_tensor(seeded_env(desc.hdri_rgbe), device=device)
     return dataclasses.replace(scene, env=texture.TextureBuf(data=env, kind=kind))
+
+
+def _oracle_row(name, w=24, h=24, sel=None, standin=None, fixture=False, textured=False,
+                **cfg_kw):
+    """A descriptor maker for ``ORACLE_CASES``: the registry row at w x h,
+    with selections, a stand-in mesh, the Cornell fixture or the plane
+    marked textured where asked."""
+    def make():
+        from tracer_torch.scenes.registry import get_scene
+
+        d = get_scene(name)
+        if standin:
+            d = with_standin_mesh(d, standin)
+        if fixture:
+            d = with_fixture_model(d)
+        if textured:
+            d = with_textured_plane(d)
+        if sel:
+            d = dataclasses.replace(d, selection1=sel[0], selection2=sel[1])
+        return dataclasses.replace(d, cfg=dataclasses.replace(d.cfg, width=w, height=h,
+                                                              **cfg_kw))
+    return make
+
+
+# The port's renderer against the port's CPU oracle (phase 17 and
+# ``tests/test_torch_oracle.py``): the rows of ``tests/test_oracle_parity.py``
+# whose assets exist, at its sizes and thresholds. name: (descriptor maker,
+# iteration, plane-texture mode (None: no texture; else ``seeded_texture``),
+# seeded environment, atol, share of pixels that must match).
+ORACLE_CASES = {
+    "W1 E6": (_oracle_row("W1 E6"), 0, None, False, 2e-3, 0.999),
+    "W1 E4": (_oracle_row("W1 E4"), 0, None, False, 2e-3, 0.999),
+    "W2 mirror": (_oracle_row("W2 E2", sel=(2, 0)), 0, None, False, 2e-3, 0.999),
+    "W2 transmit": (_oracle_row("W2 E3", sel=(3, 0)), 0, None, False, 2e-3, 0.999),
+    "W2 phong glossy": (_oracle_row("W2 E5", sel=(4, 1)), 0, None, False, 2e-3, 0.999),
+    "W5 E2": (_oracle_row("W5 E2 Teapot", 16, 16, standin="bunny.obj", traversal="brute"), 0,
+              None, False, 2e-3, 0.999),
+    "W5 E5": (_oracle_row("W5 E5 Cornell Box", 16, 16, fixture=True, traversal="brute"), 0,
+              None, False, 2e-3, 0.99),
+    "W6 E1 mix_ka": (_oracle_row("W6 E1 Bunny", 16, 16), 0, None, False, 2e-3, 0.99),
+    **{f"W8 E3 it{it}": (_oracle_row("W8 E3 Absorption", 16, 16, fixture=True,
+                                     traversal="brute"), it, None, False, 5e-3, 0.99)
+       for it in (0, 1, 3)},
+    "W3 E3": (_oracle_row("W3 E3"), 0, None, False, 2e-3, 0.999),
+    "W3 E4": (_oracle_row("W3 E4"), 0, None, False, 2e-3, 0.999),
+    "W3 E3 textured": (_oracle_row("W3 E3", textured=True), 0, 1, False, 2e-3, 0.999),
+    "W3 E4 textured nearest": (_oracle_row("W3 E4", textured=True), 0, 3, False, 2e-3, 0.999),
+    "W9 E1": (_oracle_row("W9 E1 Bunny", 16, 16), 0, None, True, 5e-3, 0.99),
+    "W9 E2": (_oracle_row("W9 E2 Bunny", 16, 16), 0, None, True, 5e-3, 0.99),
+}
+
+
+def oracle_score(img, ref, atol) -> float:
+    """Share of pixels within ``tests/test_oracle_parity.py``'s
+    ``assert_close`` (rtol 1e-3, ``atol``) on every channel."""
+    return float(np.isclose(img, ref, atol=atol, rtol=1e-3).all(axis=-1).mean())
+
+
+def oracle_render_both(name: str, device):
+    """(the port's frame on ``device``, the port's oracle's), (H, W, 3)
+    float32 each, of ``ORACLE_CASES[name]``: the seeded texture (uv scale 2
+    under the nearest sampler, as ``tests/test_oracle_parity.py`` runs W3
+    E4) and the seeded environment bound in both where the case asks."""
+    from tracer_torch.oracle import cpu_tracer as oracle
+    from tracer_torch.render import integrator
+    from tracer_torch.render import texture as tex
+    from tracer_torch.scenes.build import build_oracle_scene, build_scene
+
+    make, it, mode, env, _, _ = ORACLE_CASES[name]
+    desc = make()
+    scene, cfg = build_scene(desc, device)
+    osc, ocfg, cam = build_oracle_scene(desc)
+    if mode is not None:
+        uv = (2.0, 2.0) if mode == tex.TEX_NEAREST else (1.0, 1.0)
+        img = seeded_texture()
+        scene = dataclasses.replace(
+            scene, texture=tex.TextureBuf(data=torch.as_tensor(img, device=device)),
+            uniforms=dataclasses.replace(scene.uniforms, use_texture=mode,
+                                         uv_scale=torch.tensor(uv, device=device)))
+        osc.texture_img, osc.tex_mode, osc.uv_scale = img, mode, np.array(uv, np.float32)
+    if env:
+        scene = with_seeded_env(scene, desc, device)
+        osc.env_img, osc.env_rgbe = seeded_env(desc.hdri_rgbe), desc.hdri_rgbe
+    got = integrator.render_sample(integrator.with_iteration(scene, it), cfg)
+    ref = oracle.render(osc, ocfg, cam, iteration=it)
+    return got.cpu().numpy().reshape(cfg.height, cfg.width, 3), ref
 
 
 def instrumented_step(scene, cfg, state) -> dict:
@@ -1703,20 +1827,27 @@ def cli_phase(dev, card: str, kernels) -> dict:
     log(f"[cli] --interactive over a pipe: W1 E6, c 2.0, m1 5, r 2, save, q in "
         f"{time.perf_counter() - t0:.2f} s (child process)")
 
-    # --sharded stops before any work.
-    calls = []
-    build_mod.build_scene = lambda *a, **k: calls.append(a)
-    err = stdio.StringIO()
-    try:
-        with contextlib.redirect_stderr(err):
-            rc = cli.main(dragon + ["--sharded"])
-    finally:
-        build_mod.build_scene = built
-    if rc == 0 or calls or kernels[0].KERNEL_LAUNCHES != launches:
-        raise AssertionError("--sharded did not stop before any work")
-    log(f"[cli] --sharded: exit {rc} before any work: {err.getvalue().strip()}")
+    # --sharded (a one-rank NCCL group): straight, then checkpoint and resume.
+    s_npz, r_npz, ck2 = (str(out / n) for n in ("s.npz", "r.npz", "ck2.npz"))
+    before = kernels[0].KERNEL_LAUNCHES
+    run("sharded", dragon + ["--sharded", "--samples", "8", "--out-npz", s_npz])
+    run("sharded checkpoint", dragon + ["--sharded", "--samples", "4", "--checkpoint", ck2])
+    run("sharded resume", dragon + ["--sharded", "--samples", "8", "--checkpoint", ck2,
+                                    "--resume", "--out-npz", r_npz])
+    s_launches = kernels[0].KERNEL_LAUNCHES - before
+    if s_launches < 16 or sum(m.REFERENCE_CALLS for m in kernels):
+        raise AssertionError("the CLI's sharded dragon frames did not run on B1 alone")
+    with np.load(a_npz) as a:
+        for name in (s_npz, r_npz):
+            with np.load(name) as z:
+                if int(z["iteration"]) != 8 or not np.array_equal(
+                        z["image"].view(np.uint32), a["image"].view(np.uint32)):
+                    raise AssertionError(f"--sharded ({Path(name).name}) differs from the "
+                                         "unsharded image")
+    log(f"[cli] --sharded (one rank): straight 8 and checkpointed 4 + resumed 4 each equal the "
+        f"unsharded image bit for bit; B1 launches {s_launches} over 16 frames")
     del os.environ["TRACER_SCENE_CACHE"]
-    return dict(b1_launches=launches)
+    return dict(b1_launches=kernels[0].KERNEL_LAUNCHES)
 
 
 def dgrad_phase(dev, card: str, kernels, dragon) -> dict:
@@ -2002,6 +2133,253 @@ def hdr_phase(dev, card: str) -> None:
     log(f"[hdr] W9 E2 Bunny 64x64 with {FIXTURES.name}/tiny_env.hdr.png "
         f"({tuple(scene.env.data.shape)} RGBE): 2 frames, the card equals the CPU bit for bit, "
         f"{path_stats(accs[0].numpy())}; {card}")
+
+
+def shard_phase(dev, card: str, kernels, dragon, ms_frame: float, ms_step: float) -> dict:
+    """Phase 16: rendering and gradients over a ``torch.distributed`` group
+    (see the module docstring). ``dragon`` is phase 4's (scene, cfg);
+    ``ms_frame`` and ``ms_step`` phases 4's and 5's times, logged beside.
+    Raises on any failed check; returns B1's, B2's and B3's launches."""
+    import torch.distributed as dist
+
+    from tracer_torch import convert
+    from tracer_torch.diff import grad as G
+    from tracer_torch.kernels import scatter_vn, super_hits, treelet_hits
+    from tracer_torch.parallel import distributed, shard
+    from tracer_torch.render import integrator, progressive
+    from tracer_torch.scenes.build import build_scene
+    from tracer_torch.scenes.registry import get_scene
+
+    scene, cfg = dragon
+
+    def reset():
+        for m in kernels:
+            m.KERNEL_LAUNCHES = m.REFERENCE_CALLS = 0
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    # 16a. A one-rank NCCL group: frames and gradient steps.
+    single = progressive.init_state(cfg, dev)
+    for _ in range(4):
+        progressive.step(scene, cfg, single)
+    if not distributed.initialize_from_env(dev, one_rank=True):
+        raise AssertionError("no process group")
+    try:
+        mesh = shard.make_ray_mesh()
+        if mesh.size != 1 or dist.get_backend() != "nccl":
+            raise AssertionError(f"the group is {mesh.size} rank(s) on {dist.get_backend()}")
+        # The same single-device frames with the group up: what the group's
+        # own threads cost the host, apart from the band code.
+        plain = progressive.init_state(cfg, dev)
+        progressive.step(scene, cfg, plain)
+        up_ms, _, _ = timed_steps(lambda: progressive.step(scene, cfg, plain), 3)
+        rscene = shard.replicate_scene(scene, mesh)
+        st = shard.shard_state(progressive.init_state(cfg, dev), cfg, mesh)
+        step = shard.sharded_step(mesh)
+        reset()
+        step(rscene, cfg, st)
+        ms, host_ms, _ = timed_steps(lambda: step(rscene, cfg, st), 3)
+        f_b1 = super_hits.KERNEL_LAUNCHES
+        if f_b1 < 4 or any(m.REFERENCE_CALLS for m in kernels):
+            raise AssertionError(f"the sharded frames did not run on B1 alone ({f_b1} launches)")
+        if not same(shard.gather_state(st, cfg, mesh).accum, single.accum):
+            raise AssertionError("the sharded dragon frames differ from the single-device ones")
+        log(f"[shard] one-rank NCCL group: {cfg.width}x{cfg.height} dragon, 3 sharded frames "
+            f"after 1: {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms/frame (host clock) "
+            f"against phase 4's {ms_frame:.3f} and {up_ms:.3f} for unsharded frames with the "
+            f"group up; B1 launches {f_b1} over 4 frames, twin calls 0; the gathered "
+            f"accumulator equals the single-device one bit for bit; {card}")
+        gcfg = dataclasses.replace(cfg, loop="scan", max_depth=2)
+        target = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32, device=dev)
+        want = convert.grads_to_arrays(G.grad_scene(scene, gcfg, target))
+        reset()
+        grads = [G.grad_scene_sharded(rscene, gcfg, target, mesh)]
+        g_ms, g_host, _ = timed_steps(
+            lambda: grads.append(G.grad_scene_sharded(rscene, gcfg, target, mesh)), 2)
+        g_b1, g_b2 = super_hits.KERNEL_LAUNCHES, scatter_vn.KERNEL_LAUNCHES
+        if min(g_b1, g_b2) < 3 or any(m.REFERENCE_CALLS for m in kernels):
+            raise AssertionError("the sharded gradient steps did not run on B1 and B2 alone")
+        for g in grads:
+            got = convert.grads_to_arrays(g)
+            for k, w in want.items():
+                if not np.array_equal(got[k].view(np.int32), w.view(np.int32)):
+                    raise AssertionError(f"{k}: the one-rank sharded gradient differs from "
+                                         "grad_scene's")
+        log(f"[shard] grad_scene_sharded: 2 steps after 1: {g_ms:.3f} ms/step (CUDA events), "
+            f"{g_host:.3f} ms/step (host clock) against phase 5's {ms_step:.3f}; B1 launches "
+            f"{g_b1}, B2 {g_b2} over 3 steps; every step equals grad_scene bit for bit on "
+            f"every leaf; {card}")
+    finally:
+        dist.destroy_process_group()
+
+    # 16b. Bands in one process, assembled: the dragon (B1) and W9 E1 at
+    # 512x512 (B3 in every band).
+    def bands_equal(name, sc, c, it, b3):
+        full = integrator.render_sample(integrator.with_iteration(sc, it), c)
+        for size in (2, 3):
+            parts, per_band = [], []
+            for r in range(size):
+                band = shard.band_rows(c.height, r, size)
+                treelet_hits.KERNEL_LAUNCHES = 0
+                parts.append(integrator.render_sample(
+                    integrator.with_iteration(dataclasses.replace(sc, band=band), it), c))
+                per_band.append(treelet_hits.KERNEL_LAUNCHES)
+            if b3 and min(per_band) < 1:
+                raise AssertionError(f"{name}: a band did not run B3 ({per_band})")
+            got = torch.cat(parts)
+            if not same(got, full):
+                differ = int((got != full).any(dim=-1).sum())
+                raise AssertionError(f"{name} in {size} bands differs from the whole frame on "
+                                     f"{differ} pixels")
+            log(f"[shard] {name} {c.width}x{c.height} in {size} bands "
+                f"({[shard.band_rows(c.height, r, size) for r in range(size)]}) equals the "
+                f"whole frame bit for bit" + (f"; B3 launches per band {per_band}" if b3 else ""))
+        return sum(per_band)
+
+    bands_equal("Project: Dragon", scene, cfg, 0, False)
+    pdesc = get_scene("W9 E1 Bunny")
+    pscene, pcfg = build_scene(pdesc, dev)
+    b3 = bands_equal("W9 E1 Bunny", with_seeded_env(pscene, pdesc, dev), pcfg, 1, True)
+    return dict(b1_launches=f_b1 + g_b1, b2_launches=g_b2, b3_launches=b3)
+
+
+def oracle_phase(dev, card: str) -> None:
+    """Phase 17: the card's frames of ``ORACLE_CASES`` against the port's
+    CPU oracle (see the module docstring). Raises on any failed check."""
+    t0 = time.perf_counter()
+    for name, (_, it, _, _, atol, frac) in ORACLE_CASES.items():
+        img, ref = oracle_render_both(name, dev)
+        need = ORACLE_JAX_SCORES.get(name, frac)
+        got = oracle_score(img, ref, atol)
+        log(f"[oracle] {name} {img.shape[1]}x{img.shape[0]} iteration {it}: {got:.4f} of the "
+            f"pixels match the oracle (need {need:.4f}"
+            + (", the JAX package's own score" if name in ORACLE_JAX_SCORES else "")
+            + f"), max abs diff {float(np.abs(img - ref).max()):.4g}")
+        if not np.isfinite(img).all() or img.std() <= 0.01 or got < need:
+            raise AssertionError(f"{name}: the card's frame disagrees with the oracle")
+    log(f"[oracle] {len(ORACLE_CASES)} cases in {time.perf_counter() - t0:.1f} s (the oracle "
+        f"is scalar NumPy on the host); {card}")
+
+
+JPEG_FIXTURES = ("texture_420", "texture_grey", "texture_progressive")
+
+
+def jpeg_phase(dev, card: str) -> None:
+    """Phase 18: the JPEG fixtures decoded on the host, and W3 E3 at
+    512x512 with the 4:2:0 fixture as its texture (see the module
+    docstring). Raises on any failed check."""
+    from tracer_torch import io as tio
+    from tracer_torch.render import jpeg, progressive
+    from tracer_torch.scenes.build import build_scene
+    from tracer_torch.scenes.registry import get_scene
+
+    jpeg.decode(str(FIXTURES / f"{JPEG_FIXTURES[0]}.jpg"))  # builds the C helper
+    for name in JPEG_FIXTURES:
+        path = FIXTURES / f"{name}.jpg"
+        t0 = time.perf_counter()
+        got = jpeg.decode(str(path))
+        ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(got, tio.read_png(str(FIXTURES / f"{name}.pil.png"))):
+            raise AssertionError(f"{name}.jpg does not decode to the stored PIL decode")
+        log(f"[jpeg] {name}.jpg ({path.stat().st_size} bytes, {got.shape[1]}x{got.shape[0]}): "
+            f"decoded in {ms:.3f} ms on the host, equal to PIL's decode")
+    fixture = str(FIXTURES / f"{JPEG_FIXTURES[0]}.jpg")
+    desc = dataclasses.replace(with_textured_plane(get_scene("W3 E3")), texture=fixture)
+    accs = []
+    for d in (dev, "cpu"):
+        scene, cfg = build_scene(desc, d)
+        if scene.texture is None or not np.array_equal(
+                np.round(scene.texture.data.cpu().numpy() * 255.0), jpeg.decode(fixture)):
+            raise AssertionError("the W3 E3 build did not load the JPEG fixture")
+        accs.append(progressive.render_progressive(scene, cfg, 2).accum.cpu())
+    if not torch.equal(accs[0].view(torch.int32), accs[1].view(torch.int32)):
+        raise AssertionError("the W3 E3 frame with the JPEG texture differs on the card")
+    log(f"[jpeg] W3 E3 {cfg.width}x{cfg.height} ({cfg.subdivs}x{cfg.subdivs} sub-samples) with "
+        f"{JPEG_FIXTURES[0]}.jpg on its textured plane: 2 frames, the card equals the CPU bit "
+        f"for bit, {path_stats(accs[0].numpy())}; {card}")
+
+
+def bvh8_phase(dev, card: str, kernels) -> None:
+    """Phase 19: the ``bvh8`` engine (see the module docstring). Raises on
+    any failed check."""
+    from tracer_torch.accel import flat, lbvh, packet, traverse, wide
+    from tracer_torch.kernels import treelet_hits
+    from tracer_torch.render import integrator, progressive
+    from tracer_torch.scenes.build import build_scene, load_mesh
+    from tracer_torch.scenes.registry import get_scene
+
+    def same_ids(name, ids, t, want_ids, want_t):
+        differ = ids != want_ids
+        n = int(differ.sum())
+        far = differ & ~torch.isclose(t, want_t, rtol=1e-5, atol=0)
+        log(f"[bvh8] {name}: ids equal the reference's on {ids.numel() - n} of {ids.numel()} "
+            f"lanes; {n} differ, {int(far.sum())} of them at another t")
+        if n > WALK_MAX_DIFFER * ids.numel() or bool(far.any()):
+            raise AssertionError(f"{name}: hit ids differ from the reference's")
+
+    # 19a. Project: Bunny BSP at 512x512 by the bvh8 walk.
+    desc = get_scene("Project: Bunny BSP")
+    fscene, fcfg = build_scene(desc, dev)
+    rays = integrator.primary_rays(fscene, fcfg)
+    t_ref, ids_ref = flat.closest_hit(rays, fscene.tb, (fcfg.width, fcfg.height))
+    t0 = time.perf_counter()
+    scene, cfg = build_scene(dataclasses.replace(
+        desc, cfg=dataclasses.replace(desc.cfg, traversal="bvh8")), dev)
+    built = time.perf_counter() - t0
+    if cfg.traversal != "bvh8" or scene.wide is None or scene.tb is not None:
+        raise AssertionError("the bvh8 build did not make the wide BVH alone")
+    state = progressive.init_state(cfg, dev)
+    for m in kernels:
+        m.KERNEL_LAUNCHES = m.REFERENCE_CALLS = 0
+    progressive.step(scene, cfg, state)
+    ms, host_ms = timed_frames(scene, cfg, state, 2)
+    if any((m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) != (0, 0) for m in kernels):
+        raise AssertionError("bvh8: a hand kernel or a twin ran")
+    if not bool(torch.isfinite(state.accum).all()):
+        raise AssertionError("bvh8: the accumulator is not finite")
+    t8, ids8, conv = wide.closest_hit(rays, scene.wide, with_conv=True)
+    if not bool(conv.all()):
+        raise AssertionError(f"bvh8: {int((~conv).sum())} primary lanes were cut")
+    log(f"[bvh8] {desc.name} {cfg.width}x{cfg.height} (built in {built:.2f} s, "
+        f"{scene.wide.table.shape[0]} rows, depth {scene.wide.depth}): 2 frames after 1: "
+        f"{ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms/frame (host clock); {card}")
+    same_ids("bvh8 primary rays vs the treelet engine (B1)", ids8, t8, ids_ref, t_ref)
+
+    # 19b. W9 E1's bounce-2 query: packet + B3, bvh2 and bvh8.
+    pdesc = get_scene("W9 E1 Bunny")
+    pscene, pcfg = build_scene(pdesc, dev)
+    pscene = with_seeded_env(pscene, pdesc, dev)
+    caught = []
+    closest = packet.closest_hit
+    packet.closest_hit = lambda r, *a, **kw: caught.append(r) or closest(r, *a, **kw)
+    try:
+        progressive.step(pscene, pcfg, progressive.init_state(pcfg, dev))
+    finally:
+        packet.closest_hit = closest
+    r2, pframe = caught[1], (pcfg.width, pcfg.height)
+    mesh = load_mesh(pdesc.model, pdesc.model_scale)
+    t0 = time.perf_counter()
+    wb = wide.build(lbvh.build_for_mesh(mesh, max_prims=pdesc.bvh_leaf), mesh.vertices,
+                    mesh.indices, dev)
+    built = time.perf_counter() - t0
+    bvh = traverse.to_device(lbvh.build_for_mesh(mesh, max_prims=pdesc.bvh_leaf), dev)
+    V, I = pscene.geom.vertices, pscene.geom.indices
+    treelet_hits.KERNEL_LAUNCHES = 0
+    t_p, ids_p = closest(r2, pscene.tb, frame=pframe)
+    if not treelet_hits.KERNEL_LAUNCHES:
+        raise AssertionError("packet + B3 did not launch B3")
+    t_w, ids_w, conv = wide.closest_hit(r2, wb, with_conv=True)
+    if not bool(conv.all()):
+        raise AssertionError(f"bvh8 cut {int((~conv).sum())} lanes of bounce 2")
+    packet_ms = cuda_events_ms(lambda: closest(r2, pscene.tb, frame=pframe), 3)
+    bvh2_ms = cuda_events_ms(lambda: traverse.bvh_closest_hit(r2, bvh, V, I,
+                                                              max_leaf=pcfg.max_leaf), 2)
+    bvh8_ms = cuda_events_ms(lambda: wide.closest_hit(r2, wb), 2)
+    log(f"[bvh8] W9 E1 bounce 2 ({int((r2.tmax > r2.tmin).sum())} of {r2.tmax.numel()} lanes "
+        f"with a window; wide BVH built in {built:.2f} s): packet + B3 {packet_ms:.3f} ms, "
+        f"bvh2 walk {bvh2_ms:.3f} ms, bvh8 walk {bvh8_ms:.3f} ms per query (CUDA events); {card}")
+    same_ids("bvh8 walk on W9 E1 bounce 2 vs packet + B3", ids_w, t_w, ids_p, t_p)
 
 
 def profile_step(step, keys: dict) -> dict:
@@ -2560,8 +2938,25 @@ def main() -> int:
     # 15. The BSP and bvh2 walks (PyTorch ops; no hand kernel).
     walk_phase(dev, card, kernels)
     t2 = time.perf_counter()
-    log(f"[time] phase 14 took {t1 - t0:.1f} s, phase 15 {t2 - t1:.1f} s; the smoke "
-        f"{t2 - t_start:.1f} s so far (host clock)")
+
+    # 16. Rendering and gradients over a process group, and in bands.
+    sh = shard_phase(dev, card, kernels, (scene, cfg), ms_frame, ms_step)
+    t3 = time.perf_counter()
+
+    # 17. The card's frames against the port's CPU oracle.
+    oracle_phase(dev, card)
+    t4 = time.perf_counter()
+
+    # 18. The JPEG decoder, and a textured frame from a JPEG.
+    jpeg_phase(dev, card)
+    t5 = time.perf_counter()
+
+    # 19. The bvh8 walk (PyTorch ops; no hand kernel).
+    bvh8_phase(dev, card, kernels)
+    t6 = time.perf_counter()
+    log(f"[time] phase 14 took {t1 - t0:.1f} s, 15 {t2 - t1:.1f} s, 16 {t3 - t2:.1f} s, "
+        f"17 {t4 - t3:.1f} s, 18 {t5 - t4:.1f} s, 19 {t6 - t5:.1f} s; the smoke "
+        f"{t6 - t_start:.1f} s in all (host clock)")
 
     log(json.dumps({"kernels": [{
         "name": "super_hits.hits2",
@@ -2569,7 +2964,7 @@ def main() -> int:
         "source": "tracer_torch/csrc/super_hits.cu",
         "replaces": "tracer/kernels/super_hits.py:262",
         "launches": launches + g_launches["super_hits"] + dr["b1_launches"]
-        + cl["b1_launches"] + dg["b1_launches"],
+        + cl["b1_launches"] + dg["b1_launches"] + sh["b1_launches"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2582,7 +2977,8 @@ def main() -> int:
         "route": "cuda",
         "source": "tracer_torch/csrc/scatter_vn.cu",
         "replaces": "tracer/kernels/scatter_vn.py:109",
-        "launches": g_launches["scatter_vn"] + pg["b2_launches"] + dg["b2_launches"],
+        "launches": g_launches["scatter_vn"] + pg["b2_launches"] + dg["b2_launches"]
+        + sh["b2_launches"],
         "max_abs_err": b2_err,
         "ms": b2_ms,
         "device_ms": b2_device_ms,
@@ -2595,7 +2991,8 @@ def main() -> int:
         "route": "cuda",
         "source": "tracer_torch/csrc/treelet_hits.cu",
         "replaces": "tracer/kernels/treelet_hits.py:160",
-        "launches": p_launches + e_launches + pg["b3_launches"] + sun["b3_launches"],
+        "launches": p_launches + e_launches + pg["b3_launches"] + sun["b3_launches"]
+        + sh["b3_launches"],
         "max_abs_err": b3_err,
         "ms": b3_ms,
         "plain_ms": b3_plain_ms,

@@ -185,21 +185,58 @@ def _outside(name, **cfg_kw):
 
 
 @pytest.mark.parametrize("case", [
-    ("W9 E1 Bunny", dict(traversal="bvh8"), "traversal 'bvh8'"),
     ("W6 E1 Bunny", dict(lights=("area_mc",)), "lights \\('area_mc',\\)"),
     ("W8 E3 Absorption", dict(dielectric="absorb_v2"), "dielectric 'absorb_v2'"),
-    ("Project: Dragon", dict(traversal="bvh8"), "traversal 'bvh8'"),
-], ids=["path bvh8", "direct unknown light", "path absorb_v2", "bvh8"])
+], ids=["direct unknown light", "path absorb_v2"])
 def test_build_scene_rejects_rows_outside_slice(case):
-    """What is still outside raises before any work: the bvh8 engine (in
-    either mode), a direct-mode light kind outside ``DIRECT_LIGHTS`` and
-    the ``absorb_v2`` dielectric (no registry row uses either). The BSP
-    walk and ``bvh2`` are served (``tests/test_torch_bsp.py``,
-    ``tests/test_torch_traverse.py``); ``--sharded`` is refused by the CLI
-    (``tests/test_torch_cli.py``)."""
+    """What is still outside raises before any work: a direct-mode light
+    kind outside ``DIRECT_LIGHTS`` and the ``absorb_v2`` dielectric (no
+    registry row uses either). Every traversal is served: the BSP walk,
+    ``bvh2`` and ``bvh8`` (``tests/test_torch_bsp.py``,
+    ``tests/test_torch_traverse.py``, ``tests/test_torch_wide.py``)."""
     name, cfg_kw, why = case
     with pytest.raises(NotImplementedError, match=f"outside the ported slice: .*{why}"):
         build_scene(_outside(name, **cfg_kw), "cpu")
+
+
+@pytest.mark.parametrize("name", ["W9 E1 Bunny", "Project: Dragon"], ids=["path bvh8", "bvh8"])
+def test_bvh8_rows_build_and_render(name):
+    """The rows the ``bvh8`` engine was refused on build and render with it
+    at 16x16 (path mode with the seeded environment, and the dragon
+    stand-in in direct mode): a finite frame, no truncated lane, the same
+    ids as the treelet engine's on the primary rays but on ties."""
+    from chip_smoke import with_seeded_env
+
+    from tracer_torch.accel import flat, wide
+    from tracer_torch.render import integrator
+
+    desc = _outside(name, traversal="bvh8", width=16, height=16)
+    scene, cfg = build_scene(desc, "cpu")
+    assert cfg.traversal == "bvh8" and scene.wide is not None and scene.tb is None
+    if desc.hdri:
+        scene = with_seeded_env(scene, desc, "cpu")
+    img = integrator.render_sample(scene, cfg)
+    bad = (img == torch.tensor(integrator.ERROR_COLOR)).all(dim=-1)
+    assert bool(torch.isfinite(img).all()) and not bool(bad.any()) and float(img.abs().sum()) > 0
+    ref, _ = build_scene(_outside(name, traversal="bvh", width=16, height=16), "cpu")
+    rays = integrator.primary_rays(scene, cfg)
+    t8, ids8, conv = wide.closest_hit(rays, scene.wide, with_conv=True)
+    t1, ids1 = flat.closest_hit(rays, ref.tb, frame=(16, 16))
+    assert bool(conv.all()) and int((ids8 >= 0).sum()) > 0
+    differ = ids8 != ids1
+    assert int(differ.sum()) <= 2 and torch.allclose(t8[differ], t1[differ], rtol=1e-6)
+
+
+@pytest.mark.parametrize("traversal", ["brute", "bvh", "bvh2", "bvh8", "bsp"])
+def test_every_row_served_under_every_traversal(traversal):
+    """No registry row is refused a frame or a gradient under any
+    traversal the JAX package offers (``tracer/cli.py:51``)."""
+    from tracer_torch.diff.grad import not_differentiated
+
+    for desc in registry.get_scenes():
+        cfg = dataclasses.replace(build.scene_config(desc), traversal=traversal)
+        assert build.unsupported(None, cfg) == [], desc.name
+        assert not_differentiated(None, cfg) == [], desc.name
 
 
 @pytest.mark.parametrize("name", ["W1 E6", "W6 E2 Cornell Box", "W6 E1 Dragon",

@@ -11,8 +11,13 @@ package's (``python -m tracer.cli``).
   ``r`` is the one the same flags give in one run, bit for bit.
 * ``--checkpoint`` then ``--resume`` equals a straight run bit for bit
   (``W9 E1 Bunny`` at 8x8, path mode); ``--profile`` writes a trace.
-* ``--sharded`` and ``--traversal bvh8`` exit non-zero before any work
-  (with ``--device cpu`` too); without a card and without ``--device cpu``
+* The REPL's other commands (``uv 2 2``, ``tex 2``, ``move wwa``,
+  ``reset``, ``m2 3``, ``r 1``, ``save``) through both CLIs on ``W3 E2`` at
+  16x16: the saved PNGs decode to the same bytes.
+* The flags the port refused before run on the CPU: ``--sharded`` (one
+  rank) equals the unsharded image bit for bit, ``--traversal bvh8``
+  (alone and sharded) equals the treelet engine's frame at atol 1e-5 on at
+  least 99.5% of the pixels; without a card and without ``--device cpu``
   the CLI stops with one sentence.
 * ``--traversal bvh2`` runs: the bunny's frame through the ``bvh2`` walk
   equals the treelet engine's at atol 1e-5 on at least 99.5% of the
@@ -103,17 +108,34 @@ def test_checkpoint_resume_and_profile(tmp_path):
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("flags", [["--sharded"], ["--traversal", "bvh8", "--device", "cpu"],
-                                   ["--traversal", "bvh8"]], ids=["sharded", "bvh8 cpu", "bvh8"])
-def test_refusals_before_any_work(flags, monkeypatch, capsys):
-    def no_work(*a, **k):
-        raise AssertionError("the CLI built a scene")
+@pytest.mark.parametrize("flags", [["--sharded"], ["--traversal", "bvh8"],
+                                   ["--traversal", "bvh8", "--sharded"]],
+                         ids=["sharded", "bvh8 cpu", "bvh8"])
+def test_formerly_refused_flags_run(flags, tmp_path):
+    size = ["--device", "cpu", "--scene", "Project: Bunny", "--width", "16", "--height", "12",
+            "--samples", "2", "--stats-every", "0"]
+    assert cli.main(size + flags + ["--out-npz", str(tmp_path / "f.npz")]) == 0
+    assert cli.main(size + ["--out-npz", str(tmp_path / "t.npz")]) == 0
+    with np.load(tmp_path / "f.npz") as f, np.load(tmp_path / "t.npz") as t:
+        assert int(f["iteration"]) == int(t["iteration"]) == 2 and np.abs(t["image"]).sum() > 0
+        if "bvh8" in flags:
+            close = np.isclose(f["image"], t["image"], rtol=0, atol=1e-5).all(axis=-1)
+            assert close.mean() >= 0.995
+        else:
+            assert np.array_equal(f["image"].view(np.uint32), t["image"].view(np.uint32))
 
-    monkeypatch.setattr(build, "build_scene", no_work)
-    monkeypatch.setattr(torch.cuda, "is_available", no_work)
-    assert cli.main(["--scene", "Project: Bunny", *flags]) == cli.REFUSED
-    err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and ("not ported" in err[0] or "outside the ported slice" in err[0])
+
+def test_repl_commands_match_jax_cli(tmp_path):
+    args = ("--scene", "W3 E2", "--width", "16", "--height", "16", "--samples", "1",
+            "--interactive")
+    cmds = "uv 2 2\ntex 2\nmove wwa\nreset\nm2 3\nr 1\nsave {}\nq\n"
+    p_run = _run("tracer_torch.cli", "--device", "cpu", *args,
+                 stdin=cmds.format(tmp_path / "p.png"))
+    _run("tracer.cli", *args, stdin=cmds.format(tmp_path / "j.png"))
+    assert "accumulator cleared" in p_run.stderr and "iteration=1" in p_run.stderr
+    p, j = io.read_png(str(tmp_path / "p.png")), io.read_png(str(tmp_path / "j.png"))
+    assert p.shape == j.shape == (16, 16, 4)
+    assert np.array_equal(p, j) and (p[..., :3] > 0).any()
 
 
 def test_default_device_is_the_card(monkeypatch, capsys):

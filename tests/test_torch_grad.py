@@ -250,7 +250,9 @@ def test_grad_scene_needs_single_bounce(port_side):
     [] for all 44; ``tests/test_torch_direct_grad*.py`` hold the direct
     rows to the JAX package); what the renderer does not serve still
     raises before any work: a direct-mode light kind outside the registry
-    (``area_mc``) and the ``bvh8`` engine."""
+    (``area_mc``). The ``bvh8`` engine is differentiated like the others
+    (the walk picks the ids, the fetch carries the gradient): every leaf
+    finite, and the vertex and eye gradients nonzero."""
     from tracer_torch.scenes.build import scene_config
     from tracer_torch.scenes.registry import get_scenes
 
@@ -258,11 +260,22 @@ def test_grad_scene_needs_single_bounce(port_side):
         assert G.not_differentiated(None, scene_config(desc)) == [], desc.name
     scene, cfg = port_side[0], port_side[1]
     target = torch.zeros((W * H, 3))
-    for outside, why in ((dataclasses.replace(cfg, lights=("area_mc",)), "lights"),
-                         (dataclasses.replace(cfg, traversal="bvh8"), "traversal 'bvh8'")):
+    for outside, why in ((dataclasses.replace(cfg, lights=("area_mc",)), "lights"),):
         assert G.not_differentiated(scene, outside)
         with pytest.raises(NotImplementedError, match=why):
             G.grad_scene(scene, outside, target)
+    desc = _small(get_scene("Project: Bunny"))
+    s8, c8 = build_scene(dataclasses.replace(
+        desc, cfg=dataclasses.replace(desc.cfg, traversal="bvh8")), "cpu")
+    assert c8.traversal == "bvh8" and G.not_differentiated(s8, c8) == []
+    g8 = convert.grads_to_arrays(G.grad_scene(s8, c8, target))
+    want = convert.grads_to_arrays(G.grad_scene(*build_scene(desc, "cpu"), target))
+    assert g8.keys() == want.keys()
+    for k, a in g8.items():
+        assert np.isfinite(a).all(), k
+        np.testing.assert_allclose(a, want[k], rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(want[k]).max(initial=0.0)), err_msg=k)
+    assert np.abs(g8["geom.vertices"]).sum() > 0 and np.abs(g8["camera.eye"]).sum() > 0
 
 
 if __name__ == "__main__":

@@ -3,17 +3,22 @@
 * ``load_rgbe_png`` on ``tests/fixtures/tiny_env.hdr.png``: bitwise equal
   to ``tracer.render.texture.load_rgbe_png``.
 * ``tracer_torch.io.read_png`` (a decoder on the standard library's
-  ``zlib``; the card's machine has no PIL): bitwise equal to PIL's
-  ``convert("RGBA")`` on seeded images written by PIL and by hand, every
-  8-bit colour type (grey, grey + alpha, RGB, RGBA, palette; with tRNS
-  too) under every filter type, an odd width and a 1-pixel image; and
-  ``load_image`` bitwise equal to the JAX package's.
+  ``zlib`` and the port's C unfilter; the card's machine has no PIL):
+  bitwise equal to PIL's ``convert("RGBA")`` on seeded images written by
+  PIL and by hand, every 8-bit colour type (grey, grey + alpha, RGB, RGBA,
+  palette; with tRNS too) under every filter type, an odd width and a
+  1-pixel image; the unfilter at 1 to 4 bytes per pixel under all five
+  filter types; Adam7-interlaced files built by hand (each pass's rows
+  filtered with types 0 and 4); and ``load_image`` bitwise equal to the JAX
+  package's.
 * ``_read_radiance_rgbe`` and ``load_radiance_hdr``: bitwise equal to the
   JAX package's on seeded Radiance files (adaptive-RLE and flat scanlines)
   written here, and equal to the bytes written.
-* Malformed PNG and Radiance files raise ``ValueError`` naming the file; a
-  JPEG that exists raises ``NotImplementedError``; a missing image is
-  ``None`` with the JAX package's note.
+* Malformed PNG and Radiance files raise ``ValueError`` naming the file
+  (an interlaced file whose data is laid out as a plain one among them); a
+  JPEG that exists decodes as PIL decodes it (``tests/test_torch_jpeg.py``
+  holds the decoder to PIL); a missing image is ``None`` with the JAX
+  package's note.
 """
 
 from __future__ import annotations
@@ -262,6 +267,61 @@ def _corrupt(path, how: str) -> None:
     open(path, "wb").write(bytes(data))
 
 
+@pytest.mark.parametrize("bpp", [1, 2, 3, 4])
+def test_unfilter_helper_matches_pil(tmp_path, bpp):
+    """The C unfilter at 1 to 4 bytes per pixel (grey, grey + alpha, RGB,
+    RGBA), every row of a 33x47 seeded image under one of the five filter
+    types in turn, and the helper called alone against PIL's pixels."""
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[bpp]
+    px = np.random.RandomState(bpp).randint(0, 256, (47, 33, bpp)).astype(np.uint8)
+    path = str(tmp_path / f"bpp{bpp}.png")
+    _write_png(path, px, ctype, (0, 1, 2, 3, 4, 4, 3, 2, 1))
+    assert np.array_equal(io.read_png(path), _pil_rgba(path))
+    rows, prev = [], np.zeros(33 * bpp, np.uint8)
+    for y in range(47):
+        rows.append(_filter_row((y + bpp) % 5, px[y].reshape(-1), prev, bpp))
+        prev = px[y].reshape(-1)
+    out = io._unfilter(path, b"".join(rows), 47, 33 * bpp, bpp)
+    assert np.array_equal(out, px.reshape(47, -1))
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _write_adam7(path, px: np.ndarray, ctype: int) -> None:
+    """An Adam7-interlaced 8-bit PNG written by hand: each pass's sub-image
+    filtered row by row, types 0 and 4 in turn."""
+    h, w, ch = px.shape
+    rows = []
+    for i, (x0, y0, dx, dy) in enumerate(ADAM7):
+        sub = px[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        prev = np.zeros(sub.shape[1] * ch, np.uint8)
+        for y in range(sub.shape[0]):
+            row = sub[y].reshape(-1)
+            rows.append(_filter_row((0, 4)[(y + i) % 2], row, prev, ch))
+            prev = row
+    data = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 1))
+    data += _chunk(b"IDAT", zlib.compress(b"".join(rows))) + _chunk(b"IEND", b"")
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+@pytest.mark.parametrize("ctype", [0, 2, 4, 6], ids=["L", "RGB", "LA", "RGBA"])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 2), (13, 7), (29, 37)],
+                         ids=["1x1", "2x3", "7x13", "37x29"])
+def test_adam7_matches_pil(tmp_path, shape, ctype):
+    ch = CHANNELS[ctype]
+    px = np.random.RandomState(ctype * 100 + shape[1]).randint(0, 256, (*shape, ch))
+    path = str(tmp_path / "adam7.png")
+    _write_adam7(path, px.astype(np.uint8), ctype)
+    with Image.open(path) as im:
+        assert im.info.get("interlace") == 1
+    assert np.array_equal(io.read_png(path), _pil_rgba(path))
+
+
 @pytest.mark.parametrize("how", ["crc", "truncated", "signature", "16-bit", "interlaced",
                                  "2-bit grey", "bad filter"])
 def test_malformed_png_raises(tmp_path, how):
@@ -298,12 +358,12 @@ def test_malformed_radiance_raises(tmp_path, how):
         jax_texture._read_radiance_rgbe(path)
 
 
-def test_jpeg_that_exists_raises_and_missing_image_is_none(tmp_path, capfd):
+def test_jpeg_that_exists_decodes_and_missing_image_is_none(tmp_path, capfd):
     path = str(tmp_path / "grass.jpg")
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path)
-    with pytest.raises(NotImplementedError, match=path):
-        load_texture(path, False, "cpu")
-    with pytest.raises(NotImplementedError, match=path):
-        texture.load_image(path, "cpu")
+    px = np.random.RandomState(3).randint(0, 256, (9, 11, 3)).astype(np.uint8)
+    Image.fromarray(px).save(path)
+    want = _pil_rgba(path).astype(np.float32) / 255.0
+    for got in (load_texture(path, False, "cpu"), texture.load_image(path, "cpu")):
+        assert np.array_equal(got.data.numpy(), want)
     assert load_texture(str(tmp_path / "missing.jpg"), False, "cpu") is None
     assert "missing" in capfd.readouterr().err

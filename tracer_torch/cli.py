@@ -4,16 +4,24 @@ control panel (``reference/src/control_panel.rs``) as flags.
 Every flag of ``tracer.cli`` with the same meaning, plus ``--device``: the
 render runs on the card (``tracer_torch.util.self_test`` probes it first
 and stops with one sentence when there is none) unless ``--device cpu``
-asks for the CPU. ``--traversal bvh2`` runs the per-ray BVH walk, and
-``--traversal bsp`` the BSP rows' default execution (the treelet engines),
-as in the JAX package. Flags whose paths are not ported yet (``--sharded``,
-``--traversal bvh8``) stop before any work with a one-line message and
-exit code 2.
+asks for the CPU. ``--traversal bvh2`` and ``bvh8`` run the per-ray BVH
+walks, and ``--traversal bsp`` the BSP rows' default execution (the
+treelet engines), as in the JAX package.
+
+``--sharded`` renders over a ``torch.distributed`` group
+(``tracer_torch.parallel``): under ``torchrun`` (one rank per card, each on
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``) each rank renders its band
+of pixel rows, ``--resume`` hands each rank its band of the checkpoint, and
+the first rank writes ``--out``/``--out-pfm``/``--out-npz`` and the
+checkpoints (the same ``.npz`` layout). Without ``torchrun``'s variables the
+flag runs a group of one rank on the chosen device. The image equals the
+unsharded one bit for bit.
 
 Usage:
   python -m tracer_torch.cli --list
   python -m tracer_torch.cli --scene "Project: Dragon" --samples 8 --out d.png --out-npz d.npz
   python -m tracer_torch.cli --device cpu --scene "W1 E6" --width 64 --height 64 --out w.png
+  torchrun --nproc-per-node 4 -m tracer_torch.cli --sharded --scene "Project: Dragon" --out d.png
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import time
 
 import torch
 
-REFUSED = 2  # exit code of a flag or row the port does not serve yet
+REFUSED = 2  # exit code of a configuration the port does not serve
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--sharded", action="store_true",
-                   help="shard over all devices (not ported: refused)")
+                   help="render bands of rows over the torch.distributed group (torchrun's "
+                   "ranks; one rank without torchrun)")
     p.add_argument("--stats-every", type=float, default=5.0,
                    help="seconds between render-stat prints (0 = off)")
     p.add_argument("--device", default=None,
@@ -215,22 +224,32 @@ def main(argv=None) -> int:
                   f"{d.cfg.mode:6s} {d.cfg.traversal:5s} {model}")
         return 0
 
-    from tracer_torch import io as tio
-    from tracer_torch.render import progressive as P
-    from tracer_torch.scenes.build import build_scene, scene_config
-    from tracer_torch.tools import RenderStats
+    from tracer_torch.scenes.build import scene_config
     from tracer_torch.util import BackendError, self_test
 
-    if args.sharded:
-        _log("--sharded is not ported: rendering over several devices is still to come")
-        return REFUSED
     desc = _descriptor(args)
     try:
         scene_config(desc)
     except NotImplementedError as e:
         _log(str(e))
         return REFUSED
-    if args.device is not None and torch.device(args.device).type != "cuda":
+    created = False
+    if args.sharded and not args.interactive:
+        import torch.distributed as dist
+
+        from tracer_torch.parallel import distributed
+
+        dev = distributed.local_device(args.device or "cuda")
+        if dev.type == "cuda":
+            try:
+                dev, probe = self_test(str(dev))
+            except BackendError as e:
+                _log(str(e))
+                return 1
+            _log(f"device {probe}")
+        created = not dist.is_initialized()
+        distributed.initialize_from_env(dev, one_rank=True)
+    elif args.device is not None and torch.device(args.device).type != "cuda":
         dev = torch.device(args.device)
     else:
         try:
@@ -239,7 +258,27 @@ def main(argv=None) -> int:
             _log(str(e))
             return 1
         _log(f"device {probe}")
+    try:
+        return _render(args, desc, dev)
+    finally:
+        if created:
+            dist.destroy_process_group()
 
+
+def _render(args, desc, dev) -> int:
+    """Build the scene and render it as the flags say (one process, or this
+    rank's band with ``--sharded``)."""
+    from tracer_torch import io as tio
+    from tracer_torch.render import progressive as P
+    from tracer_torch.scenes.build import build_scene
+    from tracer_torch.tools import RenderStats
+
+    mesh = None
+    if args.sharded and not args.interactive:
+        from tracer_torch.parallel import distributed, shard
+
+        mesh = shard.make_ray_mesh()
+        _log(f"rank {mesh.rank} of {mesh.size} ({distributed.backend_for(dev)})")
     timings: dict = {}
     scene, cfg = build_scene(desc, dev, timings=timings)
     _log(f"scene '{desc.name}' built in {timings['total']:.2f}s ("
@@ -263,7 +302,8 @@ def main(argv=None) -> int:
         _log(f"resumed at iteration {state.iteration}")
 
     if args.interactive:
-        ignored = [name for name, on in (("--profile", bool(args.profile)),
+        ignored = [name for name, on in (("--sharded", args.sharded),
+                                         ("--profile", bool(args.profile)),
                                          ("--checkpoint", bool(args.checkpoint)),
                                          ("--checkpoint-every", args.checkpoint_every > 0))
                    if on]
@@ -277,17 +317,33 @@ def main(argv=None) -> int:
         _log(f"profiling to {args.profile}")
     stats = RenderStats(print_every=args.stats_every)
     st = state or P.init_state(cfg, dev)
+    step, whole = P.step, lambda s: s
+    if mesh is not None:
+        scene = shard.replicate_scene(scene, mesh)
+        st = shard.shard_state(st, cfg, mesh)
+        step = shard.sharded_step(mesh)
+        whole = lambda s: shard.gather_state(s, cfg, mesh)
+    writer = mesh is None or mesh.rank == 0
+
+    def checkpoint(s):
+        s = whole(s)  # every rank joins the gather
+        if writer:
+            P.save_checkpoint(args.checkpoint, s, cfg)
+
     with prof_ctx:
         for i in range(st.iteration, args.samples):
             stats.begin()
-            P.step(scene, cfg, st)
+            step(scene, cfg, st)
             _sync(dev)
             stats.end()
             if args.checkpoint and args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
-                P.save_checkpoint(args.checkpoint, st, cfg)
+                checkpoint(st)
     _log(f"rendered {st.iteration} samples; {stats.summary()}")
     if args.checkpoint:
-        P.save_checkpoint(args.checkpoint, st, cfg)
+        checkpoint(st)
+    st = whole(st)
+    if not writer:
+        return 0
     lin = st.accum.cpu().numpy().reshape(cfg.height, cfg.width, 3)
     if args.out:
         tio.write_png(args.out, P.image(st, cfg))

@@ -81,10 +81,10 @@ def with_leaves(scene: Scene, leaves: dict) -> Scene:
 
 def not_differentiated(scene: Scene, cfg: SceneConfig) -> list[str]:
     """What of this configuration the gradients do not cover ([] when they
-    do, as for every row of the registry): what the renderer itself does
-    not serve (``scenes.build.unsupported``, for example the ``bvh8``
-    engine or a direct-mode light kind outside ``DIRECT_LIGHTS``). It
-    guards configurations made outside the registry."""
+    do, as for every row of the registry under every traversal): what the
+    renderer itself does not serve (``scenes.build.unsupported``, for
+    example a direct-mode light kind outside ``DIRECT_LIGHTS``). It guards
+    configurations made outside the registry."""
     from tracer_torch.scenes.build import unsupported
 
     return unsupported(None, cfg)
@@ -110,7 +110,8 @@ def render_radiance(scene: Scene, cfg: SceneConfig, iteration: int = 0):
 
 def render_mean(scene: Scene, cfg: SceneConfig, num_samples: int = 1):
     """Mean radiance over ``num_samples`` passes at iterations 0, 1, ..."""
-    acc = torch.zeros((cfg.height * cfg.width, 3), dtype=torch.float32, device=scene.device)
+    acc = torch.zeros((integrator.lanes(scene, cfg), 3), dtype=torch.float32,
+                      device=scene.device)
     for it in range(num_samples):
         acc = acc + render_radiance(scene, cfg, it)
     return acc / torch.tensor(float(num_samples), device=scene.device)
@@ -123,6 +124,11 @@ def l2_loss(scene: Scene, cfg: SceneConfig, target, num_samples: int = 1):
 def scene_grads(scene: Scene, loss_fn) -> Scene:
     """Gradient of ``loss_fn(scene)`` with respect to every float leaf of
     the scene, as a ``Scene`` of gradients (see ``grad_scene``)."""
+    return _grad_scene_of(scene, _leaf_grads(scene, loss_fn))
+
+
+def _leaf_grads(scene: Scene, loss_fn) -> dict:
+    """{key: gradient} of ``loss_fn(scene)`` over ``float_leaves(scene)``."""
     keys = float_leaves(scene)
     # Fresh leaves on the same storage; the derived table takes no gradient.
     leaves = {k: leaf(scene, k).detach().requires_grad_(k != "geom.tri_table") for k in keys}
@@ -135,6 +141,11 @@ def scene_grads(scene: Scene, loss_fn) -> Scene:
     out = {k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(wrt, grads)}
     if "geom.tri_table" in leaves:
         out["geom.tri_table"] = torch.zeros_like(leaves["geom.tri_table"])
+    return {k: out[k] for k in keys}
+
+
+def _grad_scene_of(scene: Scene, out: dict) -> Scene:
+    """The ``Scene`` of gradients that ``out`` ({key: gradient}) holds."""
     parts = _parts(out)
     geom, mats, sp, pl, tr = (parts.get(p) for p in ("geom", "materials", "spheres", "planes",
                                                        "tris"))
@@ -172,6 +183,43 @@ def grad_scene(scene: Scene, cfg: SceneConfig, target, num_samples: int = 1) -> 
     """
     _check_differentiated(scene, cfg)
     return scene_grads(scene, lambda s: l2_loss(s, cfg, target, num_samples))
+
+
+def grad_scene_sharded(scene: Scene, cfg: SceneConfig, target, mesh,
+                       num_samples: int = 1) -> Scene:
+    """``grad_scene`` over the ranks of ``mesh`` (a
+    ``tracer_torch.parallel.shard.RayMesh``; the counterpart of the JAX
+    package's ``grad_scene_jit`` on replicated inputs). Each rank renders
+    its band of the frame (``shard.band_of``) and differentiates its share
+    of the L2 loss, the band's mean scaled by its share of the frame's
+    elements, so the shares sum to the loss over the whole frame; kernel B2
+    places the band's vertex cotangents. Every rank's leaves are then
+    summed with one ``all_reduce`` over one flat buffer, in
+    ``FLOAT_LEAVES`` order, and every rank returns the sum. A rank with an
+    empty band contributes zeros. ``scene`` must be the same on every rank
+    (``shard.replicate_scene``) and ``target`` the whole frame's (H*W, 3).
+    One rank gives ``grad_scene``'s gradient bit for bit; more ranks sum
+    in another order (no float atomics are added: two runs at one world
+    size agree bit for bit)."""
+    import torch.distributed as dist
+
+    from tracer_torch.parallel import shard
+
+    _check_differentiated(scene, cfg)
+    row0, rows = shard.band_of(cfg, mesh)
+    keys = float_leaves(scene)
+    if rows:
+        lo, hi = row0 * cfg.width, (row0 + rows) * cfg.width
+        share = float(rows) / float(cfg.height)  # exactly 1.0 for the whole frame
+        out = _leaf_grads(replace(scene, band=(row0, rows)),
+                          lambda s: l2_loss(s, cfg, target[lo:hi], num_samples) * share)
+    else:
+        out = {k: torch.zeros_like(leaf(scene, k)) for k in keys}
+    flat = torch.cat([out[k].reshape(-1) for k in keys])
+    dist.all_reduce(flat, group=mesh.group)
+    sizes = [out[k].numel() for k in keys]
+    out = {k: g.view_as(out[k]) for k, g in zip(keys, torch.split(flat, sizes))}
+    return _grad_scene_of(scene, out)
 
 
 def directional_derivative_ad(scene, cfg, target, get, set_, direction,

@@ -4,17 +4,26 @@ PNG (8-bit display image), PFM (linear float radiance, readable by HDR
 tools) and NPZ (exact float32 for diffing). The card's machine has no PIL,
 so PNG is written and read here on the standard library's ``zlib``:
 ``write_png`` stores 8-bit RGB rows unfiltered; ``read_png`` decodes
-non-interlaced 8-bit PNGs (grey, grey + alpha, RGB, RGBA) and palette PNGs
-of 1 to 8 bits, under every filter type, to what PIL's ``convert("RGBA")``
-gives, and raises ``ValueError`` naming the file for anything else.
+8-bit PNGs (grey, grey + alpha, RGB, RGBA) and palette PNGs of 1 to 8
+bits, plain or Adam7-interlaced, under every filter type, to what PIL's
+``convert("RGBA")`` gives, and raises ``ValueError`` naming the file for
+anything else. The row unfilter runs in the port's C helper
+(``tracer_torch/csrc/image_codec.c``, built at first use; a failed
+compile raises).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import struct
 import zlib
 
 import numpy as np
+
+from tracer_torch._build import CSRC, shared_library
+
+CODEC_SOURCE = CSRC / "image_codec.c"
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # Channels per pixel of each colour type: grey, RGB, palette, grey +
@@ -41,6 +50,28 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(_chunk(b"IEND", b""))
 
 
+@functools.cache
+def codec_lib() -> ctypes.CDLL:
+    """The image helper, PNG unfilter and JPEG stages (compiled at first
+    use; raises if ``gcc`` fails)."""
+    path, _ = shared_library("image_codec", ["gcc", "-O3", "-shared", "-fPIC"],
+                             [CODEC_SOURCE])
+    so = ctypes.CDLL(str(path))
+    u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    i16 = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+    u16 = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
+    i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64, c32 = ctypes.c_int64, ctypes.c_int32
+    so.png_unfilter.restype = i64
+    so.png_unfilter.argtypes = [u8, i64, i64, i64, u8]
+    so.jpeg_decode_scan.restype = i64
+    so.jpeg_decode_scan.argtypes = [u8, i64, i64, c32, c32, i32, c32, c32, c32, c32, c32, c32,
+                                    c32, u8, u8, i16]
+    so.jpeg_output.restype = i64
+    so.jpeg_output.argtypes = [i16, u16, c32, i32, c32, c32, u8]
+    return so
+
+
 def _chunks(path: str, data: bytes):
     """(type, payload) of each chunk, CRCs checked, up to IEND."""
     if not data.startswith(_SIGNATURE):
@@ -63,56 +94,60 @@ def _chunks(path: str, data: bytes):
         pos += 12 + n
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
-
-
 def _unfilter(path: str, raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters (PNG spec, section 9): (h, stride) uint8."""
+    """Undo the per-row filters (PNG spec, section 9) in the C helper:
+    (h, stride) uint8."""
     if len(raw) != h * (stride + 1):
         raise ValueError(f"{path}: image data holds {len(raw)} bytes, "
                          f"expected {h * (stride + 1)}")
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(h):
-        start = y * (stride + 1)
-        kind = raw[start]
-        line = np.frombuffer(raw, np.uint8, stride, start + 1)
-        if kind == 0:
-            cur = line
-        elif kind == 1:  # Sub: a running sum over each pixel's bytes
-            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif kind == 2:  # Up
-            cur = line + prev
-        elif kind in (3, 4):  # Average, Paeth: each byte needs its left neighbour
-            row, up = bytearray(line.tobytes()), prev.tobytes()
-            for i in range(stride):
-                a = row[i - bpp] if i >= bpp else 0
-                if kind == 3:
-                    row[i] = (row[i] + ((a + up[i]) >> 1)) & 0xFF
-                else:
-                    c = up[i - bpp] if i >= bpp else 0
-                    row[i] = (row[i] + _paeth(a, up[i], c)) & 0xFF
-            cur = np.frombuffer(bytes(row), np.uint8)
-        else:
-            raise ValueError(f"{path}: row {y} has filter type {kind}")
-        out[y] = cur
-        prev = out[y]
+    out = np.empty((h, stride), np.uint8)
+    rc = codec_lib().png_unfilter(np.frombuffer(raw, np.uint8), h, stride, bpp, out)
+    if rc:
+        raise ValueError(f"{path}: row {-rc - 1} has filter type {raw[(-rc - 1) * (stride + 1)]}")
     return out
 
 
+# Adam7 passes: (first column, first row, column step, row step).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _pixels(path: str, raw: bytes, w: int, h: int, depth: int, ch: int) -> np.ndarray:
+    """Unfilter one (sub-)image of w x h pixels and unpack it: (h, w, ch)
+    uint8 samples (palette indices of fewer than 8 bits widened)."""
+    if depth == 8:
+        return _unfilter(path, raw, h, w * ch, ch).reshape(h, w, ch)
+    # palette indices packed several to a byte, most significant first
+    rows = _unfilter(path, raw, h, (w * depth + 7) // 8, 1)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=-1, dtype=np.uint8)[:, :w, None]
+
+
+def _deinterlace(path: str, raw: bytes, w: int, h: int, depth: int, ch: int) -> np.ndarray:
+    """The seven Adam7 passes, each unfiltered on its own, put in place."""
+    px = np.empty((h, w, ch), np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue  # an empty pass stores nothing, not even filter bytes
+        n = ph * ((pw * ch * depth + 7) // 8 + 1)
+        px[y0::dy, x0::dx] = _pixels(path, raw[pos:pos + n], pw, ph, depth, ch)
+        pos += n
+    if pos != len(raw):
+        raise ValueError(f"{path}: image data holds {len(raw)} bytes, expected {pos}")
+    return px
+
+
 def read_png(path: str) -> np.ndarray:
-    """Decode a non-interlaced PNG to (H, W, 4) uint8 RGBA, as PIL's
+    """Decode a PNG (plain or Adam7-interlaced) to (H, W, 4) uint8 RGBA, as PIL's
     ``Image.open(path).convert("RGBA")`` gives it: grey spreads to RGB,
     missing alpha is 255, palette entries take their tRNS alpha, and a
     grey or RGB tRNS colour key makes matching pixels transparent. Palette
     indices may take 1, 2, 4 or 8 bits. Raises ``ValueError`` naming
-    ``path`` for other PNGs (16-bit, grey of fewer than 8 bits, Adam7
-    interlacing) and malformed files."""
+    ``path`` for other PNGs (16-bit, grey of fewer than 8 bits) and
+    malformed files."""
     with open(path, "rb") as f:
         data = f.read()
     header = palette = trns = None
@@ -136,8 +171,8 @@ def read_png(path: str) -> np.ndarray:
     if ctype not in _CHANNELS or depth != 8 and not (ctype == 3 and depth in (1, 2, 4)):
         raise ValueError(f"{path}: bit depth {depth}, colour type {ctype} (only 8-bit "
                          "grey, grey + alpha, RGB, RGBA, and palette of 1-8 bits)")
-    if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNG")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: interlace method {interlace}")
     if comp or filt:
         raise ValueError(f"{path}: compression method {comp}, filter method {filt}")
     if w == 0 or h == 0:
@@ -147,13 +182,10 @@ def read_png(path: str) -> np.ndarray:
     except zlib.error as e:
         raise ValueError(f"{path}: corrupt image data ({e})") from e
     ch = _CHANNELS[ctype]
-    if depth == 8:
-        px = _unfilter(path, raw, h, w * ch, ch).reshape(h, w, ch)
-    else:  # palette indices packed several to a byte, most significant first
-        rows = _unfilter(path, raw, h, (w * depth + 7) // 8, 1)
-        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
-        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        px = (bits * weights).sum(axis=-1, dtype=np.uint8)[:, :w, None]
+    if interlace:
+        px = _deinterlace(path, raw, w, h, depth, ch)
+    else:
+        px = _pixels(path, raw, w, h, depth, ch)
 
     out = np.empty((h, w, 4), np.uint8)
     if ctype == 3:

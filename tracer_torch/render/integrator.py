@@ -57,7 +57,7 @@ from dataclasses import dataclass, fields, replace
 import torch
 
 from tracer_torch.accel import bsp as bsp_mod
-from tracer_torch.accel import flat, packet, traverse
+from tracer_torch.accel import flat, packet, traverse, wide
 from tracer_torch.geometry.device import (
     SHADER_BASECOLOR,
     SHADER_GLOSSY,
@@ -171,6 +171,24 @@ def _small_mesh_table(geom):
     return torch.cat(cols, dim=1)
 
 
+def _rows(scene: Scene, cfg: SceneConfig) -> tuple:
+    """(first row, rows) of the pixel rows this pass renders: the scene's
+    band, or the whole frame."""
+    return scene.band if scene.band is not None else (0, cfg.height)
+
+
+def lanes(scene: Scene, cfg: SceneConfig) -> int:
+    """Lanes of this pass's wavefront: the band's pixels."""
+    return cfg.width * _rows(scene, cfg)[1]
+
+
+def _frame(scene: Scene, cfg: SceneConfig) -> tuple:
+    """The (W, H) the engines tile the wavefront by: the band's rows, which
+    start on a tile boundary of the frame (``parallel.shard``), so each ray
+    is traced in the same tile as in the whole frame."""
+    return cfg.width, _rows(scene, cfg)[1]
+
+
 def _effective_traversal(scene: Scene, cfg: SceneConfig) -> str:
     """Execution engine for the mesh. BSP-configured scenes run the treelet
     engines (``cfg.bsp_execution == "fast"``): a closest-hit or any-hit
@@ -186,9 +204,10 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
     triangle mesh, as the reference's sequential tmax-shrinking fold
     (``w8e3.wgsl:290-311``). The mesh goes through the brute-force engine
     (``traversal == "brute"``), the BSP walk (``"bsp"`` with
-    ``bsp_execution != "fast"``) or the ``bvh2`` walk, else through the
-    flat engine in direct mode and through the packet engine in path mode
-    (incoherent bounces defeat the flat engine's frustums).
+    ``bsp_execution != "fast"``), the ``bvh2`` walk or the ``bvh8`` walk,
+    else through the flat engine in direct mode and through the packet
+    engine in path mode (incoherent bounces defeat the flat engine's
+    frustums).
 
     ``seed_t``: optional per-ray temporal upper-bound hint for the flat
     engine; exact whatever its quality (see
@@ -303,16 +322,18 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
             _, tri = traverse.bvh_closest_hit(sub, scene.bvh, geom.vertices, geom.indices,
                                               max_leaf=cfg.max_leaf)
             conv = yes
+        elif trav == "bvh8":
+            _, tri, conv = wide.closest_hit(sub, scene.wide, with_conv=True)
         elif trav != "bvh":
             raise NotImplementedError(f"traversal {trav!r} is not ported")
         elif cfg.mode == "direct":
             _, tri, conv = flat.closest_hit(
-                sub, scene.tb, frame=(cfg.width, cfg.height), with_conv=True,
+                sub, scene.tb, frame=_frame(scene, cfg), with_conv=True,
                 seed_t=None if seed_t is None else seed_t.detach(),
             )
         else:
             _, tri, conv = packet.closest_hit(
-                sub, scene.tb, frame=(cfg.width, cfg.height), with_conv=True)
+                sub, scene.tb, frame=_frame(scene, cfg), with_conv=True)
     ok = tri >= 0
     T = geom.indices.shape[0]
     tri_c = tri.long().clamp(0, T - 1)
@@ -368,9 +389,9 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
 def _mesh_only_anyhit(scene: Scene, cfg: SceneConfig, rays: Rays):
     """Trimesh-only occlusion, ``intersect_trimesh_immediate_return`` as the
     holdout shader uses it (``w9e2.wgsl:514-538``): the brute-force engine's
-    any-hit (which always converges), the BSP or ``bvh2`` walk, or the flat
-    engine's in direct mode and the packet engine's in path mode; nothing
-    blocks without a mesh.
+    any-hit (which always converges), the BSP, ``bvh2`` or ``bvh8`` walk,
+    or the flat engine's in direct mode and the packet engine's in path
+    mode; nothing blocks without a mesh.
     Returns (blocked, converged)."""
     if scene.geom is None:
         no = torch.zeros(rays.o.shape[0], dtype=torch.bool, device=rays.o.device)
@@ -390,10 +411,12 @@ def _mesh_only_anyhit(scene: Scene, cfg: SceneConfig, rays: Rays):
             blocked = traverse.bvh_any_hit(srays, scene.bvh, geom.vertices, geom.indices,
                                            max_leaf=cfg.max_leaf)
             return blocked, torch.ones_like(blocked)
+        if trav == "bvh8":
+            return wide.any_hit(srays, scene.wide, with_conv=True)
         if trav != "bvh":
             raise NotImplementedError(f"traversal {trav!r} is not ported")
         mod = flat if cfg.mode == "direct" else packet
-        return mod.any_hit(srays, scene.tb, frame=(cfg.width, cfg.height),
+        return mod.any_hit(srays, scene.tb, frame=_frame(scene, cfg),
                            with_conv=True)
 
 
@@ -1033,13 +1056,20 @@ def _paint_bad(result, bad):
     return vec.where(bad, err.expand(result.shape), result)
 
 
+def _band_uv(scene: Scene, cfg: SceneConfig):
+    """The quad coords of the band's pixels, as the whole frame has them."""
+    row0, rows = _rows(scene, cfg)
+    u, v = pixel_uv(cfg.width, cfg.height, device=scene.device)
+    lo, hi = row0 * cfg.width, (row0 + rows) * cfg.width
+    return u[lo:hi], v[lo:hi]
+
+
 def primary_rays(scene: Scene, cfg: SceneConfig, jitter=None) -> Rays:
     """Direct-mode primary rays through the pixel centres offset by
     ``jitter`` ((2,), one stratified sub-sample; None is zero jitter)."""
-    w, h = cfg.width, cfg.height
     dev = scene.device
-    u, v = pixel_uv(w, h, device=dev)
-    n = w * h
+    u, v = _band_uv(scene, cfg)
+    n = lanes(scene, cfg)
     if jitter is None:
         jitter = torch.zeros(2, dtype=torch.float32, device=dev)
     rays = camera_rays(scene.camera, u, v, jitter.expand(n, 2))
@@ -1054,14 +1084,13 @@ def _path_primary(scene: Scene, cfg: SceneConfig):
     """Path-mode primary rays and random streams: each pixel's stream is
     seeded by (launch index, iteration) and its first two draws jitter the
     pixel by up to 1/height (``w8e3.wgsl:254-259``)."""
-    w, h = cfg.width, cfg.height
     dev = scene.device
-    u, v = pixel_uv(w, h, device=dev)
-    n = w * h
+    u, v = _band_uv(scene, cfg)
+    n = lanes(scene, cfg)
     state = _pixel_states(scene, cfg)
     j1, state = rng.rnd(state)
     j2, state = rng.rnd(state)
-    jitter = vec.div(torch.stack([j1, j2], dim=-1), float(h))
+    jitter = vec.div(torch.stack([j1, j2], dim=-1), float(cfg.height))
     rays = camera_rays(scene.camera, u, v, jitter)
     return Rays(
         rays.o, rays.d,
@@ -1072,9 +1101,10 @@ def _path_primary(scene: Scene, cfg: SceneConfig):
 
 def _pixel_states(scene: Scene, cfg: SceneConfig):
     """Each pixel's random stream, seeded by (launch index, iteration)."""
-    n = cfg.width * cfg.height
-    return rng.pixel_seed(torch.arange(n, dtype=torch.int64, device=scene.device),
-                          scene.uniforms.iteration)
+    row0, rows = _rows(scene, cfg)
+    first = row0 * cfg.width
+    return rng.pixel_seed(torch.arange(first, first + rows * cfg.width, dtype=torch.int64,
+                                       device=scene.device), scene.uniforms.iteration)
 
 
 def _direct_states(scene: Scene, cfg: SceneConfig):
@@ -1095,7 +1125,8 @@ def _jitters(scene: Scene):
 
 
 def render_sample(scene: Scene, cfg: SceneConfig, full_depth: bool = False):
-    """One sample pass over the full W x H wavefront (no temporal seed).
+    """One sample pass over the W x H wavefront, or over the rows of the
+    scene's band (no temporal seed).
     Direct mode averages the stratified sub-samples of ``scene.jitters``
     (``w3e3.wgsl:150-165``): their sum in order, divided by their count.
     ``full_depth``: path mode runs all ``max_depth`` bounces (see
@@ -1105,7 +1136,7 @@ def render_sample(scene: Scene, cfg: SceneConfig, full_depth: bool = False):
         return bounce_loop(scene, cfg, rays, state, full_depth=full_depth)[0]
     jitters = _jitters(scene)
     state = _direct_states(scene, cfg)
-    acc = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32, device=scene.device)
+    acc = torch.zeros((lanes(scene, cfg), 3), dtype=torch.float32, device=scene.device)
     for i in range(jitters.shape[0]):
         acc = acc + bounce_loop(scene, cfg, primary_rays(scene, cfg, jitters[i]), state)[0]
     return vec.div(acc, float(jitters.shape[0]))
@@ -1124,7 +1155,7 @@ def render_sample_seeded(scene: Scene, cfg: SceneConfig, seed_t):
         return render_sample(scene, cfg), seed_t
     jitters = _jitters(scene)
     state = _direct_states(scene, cfg)
-    acc = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32, device=scene.device)
+    acc = torch.zeros((lanes(scene, cfg), 3), dtype=torch.float32, device=scene.device)
     for i in range(jitters.shape[0]):
         res, seed_t = bounce_loop(scene, cfg, primary_rays(scene, cfg, jitters[i]), state,
                                   seed_t=seed_t)

@@ -20,6 +20,7 @@ import torch
 from tracer_torch.accel.bsp import BspBuffers
 from tracer_torch.accel.lbvh import BvhBuffers
 from tracer_torch.accel.treelet import TreeletBvh
+from tracer_torch.accel.wide import WideBvh
 from tracer_torch.geometry.device import AnalyticTriangles, GeometryBuffers, MaterialTable, Planes
 from tracer_torch.render.camera import Camera
 from tracer_torch.render.texture import TextureBuf
@@ -122,6 +123,8 @@ class Scene:
     # (``bsp_execution != "fast"``), as tensors; None elsewhere.
     bvh: Optional[BvhBuffers] = None
     bsp: Optional[BspBuffers] = None
+    # The 8-ary BVH of ``traversal="bvh8"``; None elsewhere.
+    wide: Optional[WideBvh] = None
     planes: Optional[Planes] = None  # analytic planes (None: no planes)
     env: Optional[TextureBuf] = None  # environment map (None: bg_color)
     spheres: Optional[Spheres] = None  # analytic spheres (None: no spheres)
@@ -130,6 +133,10 @@ class Scene:
     # (subdivs^2, 2) stratified sub-pixel offsets of direct mode (None: one
     # sample at the pixel's centre).
     jitters: Optional[torch.Tensor] = None
+    # (first row, rows): the band of whole pixel rows this scene renders
+    # (``tracer_torch.parallel.shard``); None is the whole frame. Rays,
+    # random streams and jitters take the pixels' frame-wide indices.
+    band: Optional[tuple] = None
 
     @property
     def device(self) -> torch.device:

@@ -8,8 +8,9 @@ textures are sampled by the sampler mode of the ``use_texture`` uniform
 lookup is ``environment_map`` (``w9e2.wgsl:234-246``). atan2, acos and exp2
 are taken in float64 and rounded, so the CPU and the card sample the same
 texels with the same weights. The loaders read PNG through
-``tracer_torch.io.read_png`` (no PIL on the card's machine) and Radiance
-``.hdr`` files in NumPy; JPEG has no decoder here and raises.
+``tracer_torch.io.read_png`` and JPEG through ``tracer_torch.render.jpeg``
+(no PIL on the card's machine; both equal PIL's decode bit for bit), and
+Radiance ``.hdr`` files in NumPy.
 """
 
 from __future__ import annotations
@@ -41,13 +42,19 @@ class TextureBuf:
 
 
 def load_image(path: str, device) -> TextureBuf:
-    """Load a PNG as an Rgba8Unorm-equivalent float texture: (H, W, 4)
-    float32, the RGBA bytes over 255, as PIL's ``convert("RGBA")`` gives
-    them. Other formats (JPEG) raise ``NotImplementedError``."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: only PNG images can be decoded (no JPEG decoder is ported)")
-    arr = io.read_png(path).astype(np.float32) / 255.0
+    """Load a PNG or JPEG as an Rgba8Unorm-equivalent float texture: (H, W,
+    4) float32, the RGBA bytes over 255, as PIL's ``convert("RGBA")`` gives
+    them. Other formats raise ``NotImplementedError``."""
+    ext = path.lower().rsplit(".", 1)[-1]
+    if ext == "png":
+        rgba = io.read_png(path)
+    elif ext in ("jpg", "jpeg"):
+        from tracer_torch.render import jpeg
+
+        rgba = jpeg.decode(path)
+    else:
+        raise NotImplementedError(f"{path}: only PNG and JPEG images are decoded")
+    arr = rgba.astype(np.float32) / 255.0
     return TextureBuf(data=torch.as_tensor(arr, device=device), kind=ENV_LDR)
 
 

@@ -7,8 +7,9 @@ procedural stand-in; a missing model without one raises
 triangles builds what the traversal walks, as the JAX package does: for
 the treelet engines (``bvh``, and ``bsp`` with ``bsp_execution="fast"``)
 the LBVH with the native C++ code, cut into treelets, with the block table
-gathered on the device; for ``bvh2`` the binary LBVH; for the BSP walk
-the BSP tree (native C++ builder). Smaller meshes take the brute-force
+gathered on the device; for ``bvh2`` the binary LBVH; for ``bvh8`` the
+8-ary BVH collapsed from it (not cached, as in the JAX package); for the
+BSP walk the BSP tree (native C++ builder). Smaller meshes take the brute-force
 engine and get no acceleration structure. The mesh and the treelet cut go through the disk cache
 (``tracer_torch.scenes.cache``). Reads the environment map and the plane
 texture (a missing file leaves it out, with the JAX package's note on
@@ -24,11 +25,13 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from tracer_torch.accel import bsp as bsp_mod
 from tracer_torch.accel import lbvh, traverse
 from tracer_torch.accel import treelet as treelet_mod
+from tracer_torch.accel import wide as wide_mod
 from tracer_torch.geometry import obj as obj_mod
 from tracer_torch.geometry.device import AnalyticTriangles, Planes, upload_mesh
 from tracer_torch.geometry.procedural import standin_for
@@ -89,12 +92,13 @@ def unsupported(desc: SceneDescriptor, cfg: SceneConfig) -> list[str]:
     next-event estimation over the emissive triangles (``area_mc``), the
     sun (``directional``) or no lights; analytic spheres, planes and
     triangles and an optional mesh on the treelet engines (``bvh``, or
-    ``bsp`` executed by them), the BSP walk, the ``bvh2`` walk or the
-    brute-force engine; the ``while`` or the differentiable ``scan`` bounce
-    loop with any ``remat`` policy; the environment map in either mode.
-    Refused: the ``bvh8`` engine, a TPU layout that is not ported."""
+    ``bsp`` executed by them), the BSP walk, the ``bvh2`` or ``bvh8`` walk
+    or the brute-force engine; the ``while`` or the differentiable ``scan``
+    bounce loop with any ``remat`` policy; the environment map in either
+    mode. Refused: what no registry row asks for (a direct-mode light kind
+    outside ``DIRECT_LIGHTS``, the ``absorb_v2`` dielectric)."""
     why = []
-    if cfg.traversal not in ("brute", "bvh", "bvh2", "bsp"):
+    if cfg.traversal not in ("brute", "bvh", "bvh2", "bvh8", "bsp"):
         why.append(f"traversal {cfg.traversal!r}")
     if cfg.loop not in ("while", "scan"):
         why.append(f"bounce loop {cfg.loop!r}")
@@ -138,7 +142,7 @@ def load_texture(path: str, rgbe: bool, device):
     ``.hdr.png`` (``rgbe``) or a plain image. ``None`` (with a note on
     stderr) when the file is missing, as in the JAX package: misses then
     take the background colour and planes their base colour. A file that
-    exists and cannot be decoded (JPEG) raises."""
+    exists and cannot be decoded raises."""
     if not os.path.exists(path):
         print(f"[build] texture '{path}' missing — scene falls back to the "
               "background color (reference lists it in .MISSING_LARGE_BLOBS)",
@@ -199,7 +203,7 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
         marks[name] = t - t0
         t0 = t
 
-    geom = materials = light_indices = tb = bvh = bsp = None
+    geom = materials = light_indices = tb = bvh = bsp = wide = None
     if desc.model is not None:
         mesh = load_mesh(desc.model, desc.model_scale)
         mark("mesh_load")
@@ -211,6 +215,9 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
             host = treelet_host(mesh, desc.bvh_leaf)
         elif cfg.traversal == "bvh2":
             bvh = traverse.to_device(lbvh.build_for_mesh(mesh, max_prims=desc.bvh_leaf), device)
+        elif cfg.traversal == "bvh8":
+            wide = wide_mod.build(lbvh.build_for_mesh(mesh, max_prims=desc.bvh_leaf),
+                                  mesh.vertices, mesh.indices, device)
         elif cfg.traversal == "bsp":
             bsp = bsp_mod.to_device(bsp_mod.build_for_mesh(mesh), device)
         mark("accel_host")
@@ -252,6 +259,7 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
         tb=tb,
         bvh=bvh,
         bsp=bsp,
+        wide=wide,
         planes=planes,
         env=env,
         spheres=spheres,
@@ -263,3 +271,46 @@ def build_scene(desc: SceneDescriptor, device, timings: dict | None = None):
         marks["total"] = time.perf_counter() - t_start
         timings.update(marks)
     return scene, cfg
+
+
+def build_oracle_scene(desc: SceneDescriptor):
+    """The CPU oracle's scene for a descriptor (port of
+    ``tracer.scenes.build.build_oracle_scene``): the analytic primitives,
+    the mesh through ``load_mesh`` (so the stand-ins and the disk cache
+    too), the plane texture and the environment map as NumPy arrays.
+    Returns (OracleScene, cfg, camera dict)."""
+    from tracer_torch.oracle.cpu_tracer import OracleScene
+
+    f32 = lambda x: np.array(x, np.float32)
+    cfg = desc.cfg
+    sc = OracleScene()
+    for (c, r, sh, bc, ior, ext) in desc.spheres:
+        sc.spheres.append((f32(c), np.float32(r), _resolve_static(sh, desc), f32(bc),
+                           np.float32(ior), f32(ext)))
+    for (p, n, tg, bn, sh, bc, txd) in desc.planes:
+        sc.planes.append((f32(p), f32(n), f32(tg), f32(bn), _resolve_static(sh, desc), f32(bc),
+                          bool(txd)))
+    for (v0, v1, v2, sh, bc) in desc.tris:
+        sc.tris.append((f32(v0), f32(v1), f32(v2), _resolve_static(sh, desc), f32(bc)))
+    if desc.model is not None:
+        mesh = load_mesh(desc.model, desc.model_scale)
+        sc.mesh_vertices = mesh.vertices
+        sc.mesh_normals = mesh.normals
+        sc.mesh_indices = mesh.indices.astype(np.int64)
+        sc.mesh_matids = np.where(mesh.mat_ids == 0xFFFFFFFF, 0, mesh.mat_ids).astype(np.int64)
+        sc.mat_diffuse = np.stack([m.diffuse for m in mesh.materials])
+        sc.mat_emission = np.stack([m.ambient for m in mesh.materials])
+        sc.light_indices = list(mesh.light_indices())
+        sc.mesh_shader = _resolve_static(cfg.mesh_shader, desc)
+        sc.use_vertex_normals = cfg.use_vertex_normals
+    if desc.texture:
+        t = load_texture(desc.texture, False, "cpu")
+        if t is not None:
+            sc.texture_img = t.data.numpy()
+            sc.tex_mode = tex.TEX_DEFAULT
+    if desc.hdri:
+        e = load_texture(desc.hdri, desc.hdri_rgbe, "cpu")
+        if e is not None:
+            sc.env_img = e.data.numpy()
+            sc.env_rgbe = e.kind == tex.ENV_RGBE
+    return sc, cfg, dict(desc.camera)
