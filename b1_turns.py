@@ -3,8 +3,8 @@
     python3 b1_turns.py --parent DIR [--turns parent,new,new,parent] \\
         [--reps 50] [--frames 20] [--steps 5] [--out build/b1_turns.json]
 
-A script beside ``chip_smoke.py`` (it uses the smoke's helpers). Kernels,
-by name:
+A script beside ``chip_smoke.py`` (it uses the smoke's helpers and
+``turns.py``). Kernels, by name:
 
 * ``new``: this checkout's ``tracer_torch.kernels.super_hits.hits2``;
 * ``parent``: the wrapper and kernel of another checkout at DIR (for
@@ -28,8 +28,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import importlib.util
-import json
 import subprocess
 import sys
 import threading
@@ -38,19 +36,6 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
-
-
-def load_parent(root: Path):
-    """The B1 wrapper module of the checkout at ``root``, building its
-    kernel from ``root``'s sources (it shares this checkout's build code)."""
-    csrc = root / "tracer_torch" / "csrc"
-    spec = importlib.util.spec_from_file_location(
-        "parent_super_hits", root / "tracer_torch" / "kernels" / "super_hits.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod.SOURCE = csrc / "super_hits.cu"
-    mod.HEADERS = tuple(csrc / h.name for h in mod.HEADERS)
-    return mod
 
 
 def clock_under(fn, n: int) -> str:
@@ -87,10 +72,9 @@ def main(argv=None) -> int:
         raise RuntimeError("b1_turns: torch.cuda.is_available() is false")
     from chip_smoke import compare, cuda_events_ms, frame_args, log
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    import turns as T
+
+    smi = T.card()
     log(smi)
 
     import tracer_torch
@@ -102,7 +86,7 @@ def main(argv=None) -> int:
     from tracer_torch.scenes.registry import get_scene
 
     dev = tracer_torch.cuda_device()
-    parent = load_parent(args.parent.resolve())
+    parent = T.load_wrapper("parent", args.parent.resolve(), "super_hits", "super_hits.cu")
     new_hits = super_hits.hits2
     jobs = {"new": lambda: (new_hits, super_hits.build()[1]),
             "parent": lambda: (parent.hits2, parent.build()[1])}
@@ -111,13 +95,9 @@ def main(argv=None) -> int:
     kernels = {}
     for name, (fn, build_log) in built.items():
         kernels[name] = fn
-        for line in build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build {name}] {line.strip()}")
+        T.log_build(name, build_log)
     turns = args.turns.split(",")
-    unknown = set(turns) - set(kernels)
-    if unknown:
-        raise ValueError(f"b1_turns: no kernel named {sorted(unknown)}")
+    T.check_names("b1_turns", turns, kernels)
 
     scene, cfg = build_scene(get_scene("Project: Dragon"), dev)
     rays = integrator.primary_rays(scene, cfg)
@@ -162,14 +142,7 @@ def main(argv=None) -> int:
         log(f"[turn {i}] {name}: B1 {kernel_ms:.4f} ms on the seeded frame's emissions "
             f"({args.reps} launches; SM clock, power under it: {clock}), dragon {frame_ms:.3f} ms/frame (host clock "
             f"{frame_host:.3f} with its warm-up), gradient step {step_ms:.3f} ms/step; {smi}")
-    summary = {name: {k: [r[k] for r in rows if r["name"] == name]
-                      for k in ("kernel_ms", "frame_ms", "step_ms")}
-               for name in dict.fromkeys(turns)}
-    for name, vals in summary.items():
-        log(f"[summary] {name}: " + ", ".join(
-            f"{k} {' '.join(f'{v:.4f}' for v in vs)}" for k, vs in vals.items()))
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps({"card": smi, "turns": rows, "summary": summary}, indent=1))
+    T.write_turns(rows, ("kernel_ms", "frame_ms", "step_ms"), args.out, smi)
     return 0
 
 

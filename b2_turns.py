@@ -3,8 +3,8 @@
     python3 b2_turns.py --parent DIR [--turns parent,new,new,parent] \\
         [--reps 100] [--out build/b2_turns.json]
 
-A script beside ``chip_smoke.py`` (it uses the smoke's helpers). Kernels,
-by name:
+A script beside ``chip_smoke.py`` (it uses the smoke's helpers and
+``turns.py``). Kernels, by name:
 
 * ``new``: this checkout's ``tracer_torch.kernels.scatter_vn.segment_place``;
 * ``parent``: the wrapper and kernel of another checkout at DIR (for
@@ -25,24 +25,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import importlib.util
-import json
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
-
-
-def load_parent(root: Path):
-    """The B2 wrapper module of the checkout at ``root``, building its
-    kernel from ``root``'s source (it shares this checkout's build code)."""
-    spec = importlib.util.spec_from_file_location(
-        "parent_scatter_vn", root / "tracer_torch" / "kernels" / "scatter_vn.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod.SOURCE = root / "tracer_torch" / "csrc" / "scatter_vn.cu"
-    return mod
 
 
 def main(argv=None) -> int:
@@ -57,10 +43,9 @@ def main(argv=None) -> int:
         raise RuntimeError("b2_turns: torch.cuda.is_available() is false")
     from chip_smoke import cuda_events_ms, log, profiled_device_ms
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    import turns as T
+
+    smi = T.card()
     log(smi)
 
     import tracer_torch
@@ -70,16 +55,12 @@ def main(argv=None) -> int:
     from tracer_torch.scenes.registry import get_scene
 
     dev = tracer_torch.cuda_device()
-    parent = load_parent(args.parent.resolve())
+    parent = T.load_wrapper("parent", args.parent.resolve(), "scatter_vn", "scatter_vn.cu")
     kernels = {"new": scatter_vn.segment_place, "parent": parent.segment_place}
     for name, mod in (("new", scatter_vn), ("parent", parent)):
-        for line in mod.build()[1].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build {name}] {line.strip()}")
+        T.log_build(name, mod.build()[1])
     turns = args.turns.split(",")
-    unknown = set(turns) - set(kernels)
-    if unknown:
-        raise ValueError(f"b2_turns: no kernel named {sorted(unknown)}")
+    T.check_names("b2_turns", turns, kernels)
 
     scene, cfg = build_scene(get_scene("Project: Dragon"), dev)
     gcfg = dataclasses.replace(cfg, loop="scan", max_depth=2)
@@ -110,13 +91,7 @@ def main(argv=None) -> int:
         rows.append(dict(turn=i, name=name, ms=ms, device_ms=device_ms))
         log(f"[turn {i}] {name}: B2 {ms:.4f} ms per call (CUDA events, {args.reps} calls), "
             f"device {device_ms:.4f} ms (profiler); {smi}")
-    summary = {name: {k: [r[k] for r in rows if r["name"] == name] for k in ("ms", "device_ms")}
-               for name in dict.fromkeys(turns)}
-    for name, vals in summary.items():
-        log(f"[summary] {name}: " + ", ".join(
-            f"{k} {' '.join(f'{x:.4f}' for x in xs)}" for k, xs in vals.items()))
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps({"card": smi, "turns": rows, "summary": summary}, indent=1))
+    T.write_turns(rows, ("ms", "device_ms"), args.out, smi)
     return 0
 
 

@@ -3,10 +3,10 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 1. probe    — a CUDA device must be visible; prints its name and power limit;
-2. build    — compiles the three kernels (``tracer_torch/csrc``: super-tile
-              hits B1, vertex-cotangent placement B2, treelet hits B3) with
-              nvcc for sm_90a, in parallel, and prints their register and
-              shared memory use;
+2. build    — compiles the four kernels (``tracer_torch/csrc``: super-tile
+              hits B1, vertex-cotangent placement B2, treelet hits B3, and
+              B1's any-hit query ``super_occluded``) with nvcc for sm_90a,
+              in parallel, and prints their register and shared memory use;
 3. kernel   — each kernel against its plain-PyTorch twin on the card. B1 and
               B3 in both modes, on synthetic emissions (``synthetic``,
               ``synthetic_tiles``: zero gate words, en = 0 and en < K, ids out
@@ -27,7 +27,13 @@ Phases (each raises on failure, so the script exits non-zero):
               gradient step: two launches equal bitwise, equal bitwise to
               the twin run on a CPU copy (the same fixed chunk order), and
               within the float32 bound of a length-L sum of the twin on the
-              card (atomics, no fixed order);
+              card (atomics, no fixed order). The any-hit query's kernel on
+              ``OCCLUSION_CASES`` (a bumpy blob, quarters of 8, 64 and 256
+              triangles, overflowing super-tiles, sweeps cut by the round
+              cap, lanes blocked before the query, dead windows, rays that
+              graze quarter-box faces, edges and corners): flags, t and
+              converged equal to the plain twin route's (whose sweep is
+              ungated) bit for bit, and two launches equal;
 4. frame    — ``Project: Dragon`` at 800x450 (the 869,880-triangle stand-in,
               native LBVH) through 1 warm-up and 20 timed
               ``progressive.step`` frames, then checks: every frame ran B1
@@ -118,10 +124,19 @@ Phases (each raises on failure, so the script exits non-zero):
               twin, and the frame's hit ids equal phase 4's ``Project:
               Dragon`` ids bit for bit. The shadowed dragon
               (``with_standin_mesh``: W5 E3's ``directional`` light with
-              shadow rays, the ``mix`` ambient) the same way: B1 also in
-              any-hit mode on every frame, and the shadow rays' occlusion
-              equal to the twin's (and B1 bitwise equal to its twin on their
-              emissions). ``W6 E3 Cornell Box`` at 512x512 (mirror, glossy,
+              shadow rays, the ``mix`` ambient) the same way, its shadow
+              rays through the any-hit query's kernel on every frame: every
+              frame's query (14) afterwards held bitwise to the twin route
+              on B1's kernel, and the last one's also to the plain twin
+              route on all 360,000 shadow rays (every lane converged),
+              whose counts give the
+              query's live tests and bound; the kernel timed against the
+              old route (B1 over the culled list, then 16 id-order rounds)
+              on those rays, its bound over its own live tests (the
+              ``kernels`` line's ``bound_ms``) and over the twin route's,
+              B1 bitwise equal to its twin on their culled emissions in
+              any-hit mode, and the list alone (round cap 1) through the
+              kernel, held to and timed against B1's any-hit launch. ``W6 E3 Cornell Box`` at 512x512 (mirror, glossy,
               the area lights; brute force) 1 + 10 frames with spies
               (bounces, shadow rays); ``W5 E4``/``E5``, ``W6 E2``, ``W7
               E1``/``E2`` and W1 E1-W3 E4 at 512x512, 1 + 3 frames each.
@@ -165,7 +180,8 @@ Phases (each raises on failure, so the script exits non-zero):
               nonzero, two steps agree bit for bit, and ``fd_check`` passes
               on the diffuse albedo. The shadowed dragon (W5 E3's
               configuration on the stand-in, as phase 10): 1 warm-up and 2
-              timed steps, B1 in any-hit mode on each. One step each (after
+              timed steps, the any-hit query's kernel in each (each step's
+              query held bitwise to the twin route on B1's kernel). One step each (after
               one) of ``W5 E5`` and ``W6 E3 Cornell Box`` and ``W3 E3``
               (16 sub-samples, ``seeded_texture`` on the plane that
               ``with_textured_plane`` marks textured) at 512x512, with no
@@ -216,7 +232,9 @@ Phases (each raises on failure, so the script exits non-zero):
 B1's ``launches`` count the timed frames and steps of phases 4, 5, 10, 14
 and 16 and the CLI's frames of phase 12; B2's the steps of phases 5, 9, 14
 and 16; B3's the frames and steps of phases 6, 9 and 11 and the 3-band W9
-E1 frame of phase 16.
+E1 frame of phase 16; the any-hit query's the shadowed dragon's counted
+frames of phase 10 and steps of phase 14 (its ``max_abs_err`` counts
+lanes that differ from the plain twin route).
 
 Prints one JSON object of per-kernel results on the line before the last,
 and ``{"ok": true, "device": {...}}`` as the last line. Imports nothing of
@@ -225,6 +243,7 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -737,6 +756,132 @@ def lane_tiles(device, any_hit: bool, seed: int):
     return (tb, t(eids), t(en), sh(o), sh(d), sh(tmin), sh(best_t), sh(best_pid), t(enear))
 
 
+# The flat engine's occlusion query on a bumpy blob (kernel against twin
+# route on the card; twin route against the JAX package on the CPU): name ->
+# (blob subdivisions, treelet size T, rays, seed, K, round cap, share of
+# lanes blocked before the query). T = 32, 256 and 1024 give quarters of 8,
+# 64 and 256 triangles; K = 8, 4 and 2 overflow (the id-order sweep), the
+# caps 2 and 1 cut it short (converged cleared), K = 96 does not overflow.
+# The grazing rays test the kernel's sweep gate where rounding decides.
+OCCLUSION_CASES = {
+    "frame K=96": (24, 32, "frame", 0, 96, 4096, 0.0),
+    "frame K=8": (24, 32, "frame", 0, 8, 4096, 0.0),
+    "mixed K=8": (24, 32, "mixed", 1, 8, 4096, 0.0),
+    "shadow K=4 TQ=64": (24, 256, "shadow", 2, 4, 4096, 0.0),
+    "mixed K=2 cap 2": (24, 32, "mixed", 3, 2, 2, 0.0),
+    "mixed K=2 cap 1": (24, 32, "mixed", 3, 2, 1, 0.0),
+    "mixed K=8 pre-blocked": (24, 32, "mixed", 4, 8, 4096, 0.3),
+    "shadow K=2 TQ=256": (64, 1024, "shadow", 5, 2, 4096, 0.0),
+    "graze K=2": (24, 32, "graze", 6, 2, 4096, 0.0),
+    "graze K=2 TQ=64": (24, 256, "graze", 7, 2, 4096, 0.0),
+    "graze K=4 TQ=256": (64, 1024, "graze", 8, 4, 4096, 0.0),
+}
+OCCLUSION_FRAME = (41, 29)
+
+
+def occlusion_rays(kind: str, seed: int, mesh):
+    """(o, d, tmin, tmax, frame) as numpy from a seed. ``frame``: a 41x29
+    pinhole frame from (0.1, 0, 3) towards the blob, windows to 2.5;
+    ``mixed``: 1024 rays, half from one point around (3, 0.2, 0.1) into the
+    blob, half from anywhere in any direction, windows to 4, one in ten
+    dead (tmax 0); ``shadow``: 4096 parallel rays towards a directional
+    light from random points on the mesh (lifted 1e-3 along the light),
+    windows [1e-4, 3e38); ``graze``: 64 sub-tiles of 128 rays, each
+    aimed at one vertex of the mesh, which is often the corner that makes a
+    quarter box's face: a third parallel to an axis plane through the
+    vertex (that coordinate of d exactly 0, of o 0, 1 or 2 ulps off the
+    vertex's on either side), a third from afar at the vertex or an ulp
+    beside it, a third from origins on the vertex's axis plane, windows
+    [1e-5, 4)."""
+    rs = np.random.RandomState(seed)
+    if kind == "frame":
+        W, H = OCCLUSION_FRAME
+        u = (np.arange(W) + 0.5) / W - 0.5
+        v = 0.5 - (np.arange(H) + 0.5) / H
+        uu, vv = np.meshgrid(u, v)
+        d = np.stack([uu.ravel(), vv.ravel(), -np.ones(W * H)], -1)
+        o = np.tile(np.array([[0.1, 0.0, 3.0]]), (W * H, 1))
+        tmin, tmax, frame = np.full(W * H, 1e-5), np.full(W * H, 2.5), OCCLUSION_FRAME
+    elif kind == "mixed":
+        n = 1024
+        o1 = np.tile(np.array([[3.0, 0.2, 0.1]]), (n // 2, 1))
+        d1 = rs.randn(n // 2, 3) * 0.4 - o1
+        o2 = rs.randn(n // 2, 3) * 3.0
+        o, d = np.concatenate([o1, o2]), np.concatenate([d1, rs.randn(n // 2, 3)])
+        tmin, tmax, frame = np.full(n, 1e-5), np.where(rs.rand(n) < 0.1, 0.0, 4.0), None
+    elif kind == "graze":
+        o, d = [], []
+        for g in range(64):
+            v = mesh.vertices[rs.randint(mesh.vertices.shape[0])].astype(np.float32)
+            k, sub = rs.randint(3), g % 3
+            if sub == 0:  # parallel to the plane x_k = v_k, at most 2 ulps off it
+                u = rs.randn(128, 3)
+                u[:, k] = 0.0
+                u /= np.linalg.norm(u, axis=1, keepdims=True)
+                og = (v - 2.5 * u).astype(np.float32)
+                og[:, k] = v[k]
+                steps = rs.randint(-2, 3, 128)
+                for _ in range(2):
+                    m = steps != 0
+                    og[m, k] = np.nextafter(og[m, k], np.float32(np.inf) * np.sign(steps[m]))
+                    steps -= np.sign(steps)
+                dg = u
+            else:  # from afar at the vertex (an ulp beside it), or from its axis plane
+                aim = np.repeat(v[None], 128, axis=0)
+                j = rs.randint(3, size=128)
+                aim[np.arange(128), j] = np.nextafter(
+                    aim[np.arange(128), j], np.where(rs.rand(128) < 0.5, -np.inf, np.inf)
+                    .astype(np.float32))
+                aim[rs.rand(128) < 0.5] = v
+                if sub == 1:
+                    dg = rs.randn(1, 3) + 0.05 * rs.randn(128, 3)
+                    og = aim - 2.5 * dg / np.linalg.norm(dg, axis=1, keepdims=True)
+                else:
+                    og = v + 0.05 * rs.randn(128, 3)
+                    og[:, k] = v[k]
+                    dg = aim - og
+            o.append(og)
+            d.append(dg)
+        o, d = np.concatenate(o).astype(np.float64), np.concatenate(d)
+        n = o.shape[0]
+        tmin, tmax, frame = np.full(n, 1e-5), np.full(n, 4.0), None
+    else:
+        n = 4096
+        tri = mesh.vertices[mesh.indices[rs.randint(0, mesh.indices.shape[0], n)]]
+        w = rs.dirichlet(np.ones(3), n)
+        light = np.array([0.4, 0.8, -0.45]) / np.linalg.norm([0.4, 0.8, -0.45])
+        o = (tri * w[:, :, None]).sum(axis=1) + 1e-3 * light
+        d = np.tile(light, (n, 1))
+        tmin, tmax, frame = np.full(n, 1e-4), np.full(n, 3.0e38), None
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    f = np.float32
+    return o.astype(f), d.astype(f), tmin.astype(f), tmax.astype(f), frame
+
+
+def occlusion_case(name: str, device):
+    """(tb, em, max_rounds) for ``OCCLUSION_CASES[name]`` on ``device``:
+    the port's treelets of the blob and ``flat.emissions(..., any_hit=True)``
+    of its rays, with the share of lanes the case names already blocked
+    (flag 1.0, from the same seed)."""
+    from tracer_torch.accel import flat, lbvh, treelet
+    from tracer_torch.geometry.procedural import bumpy_blob
+    from tracer_torch.kernels.intersect import make_rays
+
+    n_sub, T, kind, seed, K, max_rounds, pre = OCCLUSION_CASES[name]
+    mesh = bumpy_blob(n_sub, n_sub, 1.0, (0.0, 0.0, 0.0))
+    host = treelet.build_host(lbvh.build(*mesh.bboxes(), max_prims=4), T=T)
+    tb = treelet.from_host(host, torch.as_tensor(mesh.vertices, device=device),
+                           torch.as_tensor(mesh.indices.astype(np.int32), device=device))
+    o, d, tmin, tmax, frame = occlusion_rays(kind, seed, mesh)
+    t = lambda x: torch.as_tensor(x, device=device)
+    em = flat.emissions(make_rays(t(o), t(d), t(tmin), t(tmax)), tb, frame,
+                        any_hit=True, K=K)
+    if pre:
+        blocked = np.random.RandomState(seed).rand(*em.bp0.shape) < pre
+        em = dataclasses.replace(em, bp0=t(np.where(blocked, 1.0, -1.0).astype(np.float32)))
+    return tb, em, max_rounds
+
+
 def brute_case(kind: str, seed: int, n: int = 4096):
     """Inputs of the brute-force engine from numpy with a seed: (vertices,
     indices, o, d, tmin, tmax, edge). ``kind`` "cornell": the Cornell box fixture,
@@ -895,6 +1040,79 @@ def b3_bound(args, tests: int) -> tuple[float, str]:
     blocks = eids.clamp(0, tb.NT - 1)[live].unique().numel() * 16 * tb.T * 4
     n_bytes = blocks + nbytes(eids, en, o, d, tmin, bt, bp) + nbytes(bt, bp)
     return bound_ms(n_bytes, tests * OPS_PER_TEST)
+
+
+def occlusion_bound(tb, em, max_rounds: int, tests: int) -> tuple[float, str]:
+    """The any-hit query on one wavefront's emissions: every input read
+    once (the quarter blocks and boxes that a gated list slot names and,
+    where a super-tile overflows, the swept ones; the rays, windows, flags,
+    sub-tile bounds and the list), the flags written once, and ``tests``
+    Möller tests (the twin route's ``live_tests``, or the kernel's own)."""
+    from tracer_torch.kernels import super_occluded
+
+    ntq, _, tq = tb.qblocks.shape
+    kd = em.ids.shape[1]
+    named = em.ids.clamp(0, ntq - 1)[
+        (torch.arange(kd, device=em.ids.device) < em.en[:, None]) & (em.gm != 0)]
+    if bool(em.overflow.any()):
+        swept = super_occluded.sweep_length(ntq, kd, max_rounds)
+        named = torch.cat([named, torch.arange(swept, dtype=named.dtype, device=named.device)])
+    n_bytes = (named.unique().numel() * (16 * tq + 6) * 4
+               + nbytes(em.ids, em.enear, em.en, em.gm, em.o, em.d, em.tmin, em.bt0, em.bp0,
+                        em.sb, em.prune_sub) + nbytes(em.bp0))
+    return bound_ms(n_bytes, tests * OPS_PER_TEST)
+
+
+@contextlib.contextmanager
+def caught_queries():
+    """While active, ``super_occluded.occluded`` keeps each call's
+    arguments and result in the yielded list (one append on the host per
+    call), so that the queries of timed runs are checked after them."""
+    from tracer_torch.kernels import super_occluded
+
+    calls = []
+    occluded = super_occluded.occluded
+
+    def catch(tb, em, max_rounds, **kw):
+        out = occluded(tb, em, max_rounds, **kw)
+        calls.append((tb, em, max_rounds, out))
+        return out
+
+    super_occluded.occluded = catch
+    try:
+        yield calls
+    finally:
+        super_occluded.occluded = occluded
+
+
+def occlusion_mismatch(em, got, want) -> int:
+    """Lanes of the wavefront (its padding left out) on which two results
+    of the any-hit query differ: t row, blocked flag or converged flag, bit
+    for bit."""
+    from tracer_torch.kernels.super_hits import SUPER
+
+    (kt, kp, kc), (rt, rp, rc) = got, want
+    bits = lambda x: x.contiguous().view(torch.int32)
+    bad = (bits(kt) != bits(rt)) | (bits(kp) != bits(rp)) | (kc != rc)[:, None].expand(-1, SUPER)
+    return int(em.untile(bad).sum())
+
+
+def check_queries(name: str, calls, hits) -> None:
+    """Each caught any-hit query against the twin route run with ``hits``
+    on the same emissions; raises on any lane that differs."""
+    from tracer_torch.kernels import super_occluded
+
+    lanes = 0
+    for tb, em, max_rounds, got in calls:
+        bad = occlusion_mismatch(em, got, super_occluded.occluded_reference(
+            tb, em, max_rounds, hits=hits))
+        if bad:
+            raise AssertionError(f"{name}: {bad} lanes of a query differ from the twin route")
+        lanes += em.untile(got[1]).numel()
+    if not calls:
+        raise AssertionError(f"{name}: no any-hit query was caught")
+    log(f"  {name}: {len(calls)} queries, {lanes} lanes, flags and converged equal to the twin "
+        f"route's on {hits.__name__} bit for bit")
 
 
 # Hand-written Cornell boxes (tests/fixtures) that stand in for the reference's
@@ -1263,7 +1481,7 @@ def direct_phase(dev, card: str, kernels, dragon) -> dict:
     failed check; returns B1's launches in the phase and its largest error
     against the twin on the shadow rays, for the ``kernels`` line."""
     from tracer_torch.accel import flat
-    from tracer_torch.kernels import super_hits
+    from tracer_torch.kernels import super_hits, super_occluded
     from tracer_torch.render import integrator, progressive
     from tracer_torch.scenes.build import build_scene, scene_config
     from tracer_torch.scenes.registry import get_scene
@@ -1289,7 +1507,8 @@ def direct_phase(dev, card: str, kernels, dragon) -> dict:
 
     def on_dragon(row_desc, frames):
         """The dragon rows: phase 4's scene under this row's configuration;
-        B1 on every frame, never its twin."""
+        B1 on every frame, never its twin; with shadows the any-hit
+        query's kernel too on every frame, never its twin route."""
         if not same_but_config(row_desc, ddesc):
             raise AssertionError(f"{row_desc.name} is not phase 4's dragon under another config")
         cfg = scene_config(row_desc)
@@ -1302,26 +1521,33 @@ def direct_phase(dev, card: str, kernels, dragon) -> dict:
         per_frame.append(super_hits.KERNEL_LAUNCHES)
         ms, host_ms = timed_frames(dscene, cfg, state, frames)
         launches, twin = super_hits.KERNEL_LAUNCHES, super_hits.REFERENCE_CALLS
-        if launches < (frames + 1) * per_frame[0] or twin or counts()[1:] != [(0, 0), (0, 0)]:
+        occ, occ_twin = super_occluded.KERNEL_LAUNCHES, super_occluded.REFERENCE_CALLS
+        if launches < (frames + 1) * per_frame[0] or twin or counts()[1:3] != [(0, 0), (0, 0)]:
             raise AssertionError(f"{row_desc.name} did not run B1 alone on every frame: {counts()}")
+        if occ_twin or (occ < frames + 1 if cfg.shadows else occ):
+            raise AssertionError(f"{row_desc.name}: the any-hit kernel ran {occ} times over "
+                                 f"{frames + 1} frames, its twin route {occ_twin}")
         rec = cornell_instrumented(dscene, cfg, state)
         checked(row_desc.name, dscene, cfg, state, frames, rec)
-        prof = profile_step(lambda: progressive.step(dscene, cfg, state), {"b1_ms": "super_hits"})
+        prof = profile_step(lambda: progressive.step(dscene, cfg, state),
+                            {"b1_ms": "super_hits", "occ_ms": "super_occluded"})
         log(f"[direct] {row_desc.name} {cfg.width}x{cfg.height} (phase 4's dragon), lights "
             f"{cfg.lights}, shadows {cfg.shadows}, ambient {cfg.ambient!r}; {frames} frames after "
             f"1: {ms:.3f} ms/frame (CUDA events), {host_ms:.3f} ms/frame (host clock); B1 "
-            f"launches {launches} over {frames + 1} frames ({per_frame[0]} in the first), twin "
-            f"calls {twin}; instrumented frame: {rec['shadow']} shadow rays, truncated lanes "
+            f"launches {launches} over {frames + 1} frames ({per_frame[0]} in the first), "
+            f"any-hit kernel launches {occ}, twin calls {twin + occ_twin}; instrumented frame: "
+            f"{rec['shadow']} shadow rays, truncated lanes "
             f"{rec['bad']}; " + (f"profiled frame: {prof['kernels']} kernels, device busy "
                                  f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms trace "
-                                 f"(idle {prof['idle']:.1%}), B1 {prof['b1_ms']:.4f} ms"
+                                 f"(idle {prof['idle']:.1%}), B1 {prof['b1_ms']:.4f} ms, any-hit "
+                                 f"kernel {prof['occ_ms']:.4f} ms"
                                  if prof else "the profiler recorded no device time")
             + f"; {card}")
-        return cfg, state, launches
+        return cfg, state, launches, occ
 
     # 10a. W6 E1 Dragon: the mix_ka ambient on phase 4's dragon.
     w6 = get_scene("W6 E1 Dragon")
-    cfg6, state6, b1_w6 = on_dragon(w6, 10)
+    cfg6, state6, b1_w6, _ = on_dragon(w6, 10)
     caught = []
     closest = flat.closest_hit
     flat.closest_hit = lambda *a, **kw: caught.append(closest(*a, **kw)) or caught[-1]
@@ -1337,62 +1563,84 @@ def direct_phase(dev, card: str, kernels, dragon) -> dict:
         "converged")
 
     # 10b. The shadowed frame on the dragon: W5 E3 Teapot's configuration
-    # (the directional light with shadow rays) on the stand-in; B1 any-hit.
+    # (the directional light with shadow rays) on the stand-in; B1 for the
+    # primary rays, the any-hit query's kernel for the shadow rays, each
+    # query held afterwards against the twin route on the card.
     sdesc = with_standin_mesh(get_scene("W5 E3 Teapot"), "dragon.obj")
-    any_hit = []
-    hits2 = super_hits.hits2
-    super_hits.hits2 = lambda *a: any_hit.append(bool(a[-1])) or hits2(*a)
-    try:
-        scfg, sstate, b1_shadow = on_dragon(sdesc, 10)
-    finally:
-        super_hits.hits2 = hits2
-    if sum(any_hit) < 11:
-        raise AssertionError("the shadowed dragon frames did not each run B1 in any-hit mode")
-    # One more frame with spies: its shadow rays, and each B1 launch's mode,
-    # CUDA-event span and live lanes (the frame is not a timed one).
+    with caught_queries() as queries:
+        scfg, sstate, b1_shadow, occ_shadow = on_dragon(sdesc, 10)
+    # One more frame with spies: its shadow rays, and each hit kernel's
+    # CUDA-event span (the frame is not a timed one).
     shadow, spans = [], []
-    occluded = flat.any_hit
+    any_hit, hits2, occluded = flat.any_hit, super_hits.hits2, super_occluded.occluded
 
-    def timed_hits2(*a):
-        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        ev[0].record()
-        out = hits2(*a)
-        ev[1].record()
-        live = (a[7] < a[8]) & ~(bool(a[-1]) & (a[9] > 0.0))
-        spans.append((bool(a[-1]), ev, int(live.sum())))
-        return out
+    def spanned(fn, what):
+        def run(*a, **kw):
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            spans.append((what, ev))
+            return out
+        return run
 
-    flat.any_hit = lambda r, *a, **kw: shadow.append(r) or occluded(r, *a, **kw)
-    super_hits.hits2 = timed_hits2
+    flat.any_hit = lambda r, *a, **kw: shadow.append(r) or any_hit(r, *a, **kw)
+    super_hits.hits2 = spanned(hits2, "B1")
+    super_occluded.occluded = spanned(occluded, "any-hit")
     try:
-        progressive.step(dscene, scfg, sstate)
+        with caught_queries() as timed_query:
+            progressive.step(dscene, scfg, sstate)
     finally:
-        flat.any_hit, super_hits.hits2 = occluded, hits2
+        flat.any_hit, super_hits.hits2, super_occluded.occluded = any_hit, hits2, occluded
     torch.cuda.synchronize()
-    (srays,), n_any = shadow, sum(any_hit)
-    any_spans = [(e[0].elapsed_time(e[1]), n) for m, e, n in spans if m]
-    log(f"[direct] shadowed dragon frame's B1 launches: {len(spans) - len(any_spans)} closest "
-        f"({sum(e[0].elapsed_time(e[1]) for m, e, _ in spans if not m):.3f} ms); "
-        f"{len(any_spans)} any-hit: the culled list {any_spans[0][0]:.3f} ms over "
-        f"{any_spans[0][1]} live lanes, then {len(any_spans) - 1} sweep rounds "
-        f"{sum(t for t, _ in any_spans[1:]):.3f} ms over live lanes "
-        f"{[n for _, n in any_spans[1:]]} (CUDA events); {card}")
-    blocked_k, conv_k = flat.any_hit(srays, dscene.tb, frame, with_conv=True)
-    blocked_r = flat.any_hit(srays, dscene.tb, frame, hits=super_hits.hits2_reference)
-    if not torch.equal(blocked_k, blocked_r) or not bool(conv_k.all()):
-        raise AssertionError(f"the shadow rays' occlusion differs from the twin's on "
-                             f"{int((blocked_k != blocked_r).sum())} lanes")
-    em = flat.emissions(srays, dscene.tb, frame, any_hit=True)
-    args = frame_args(em, dscene.tb)
+    span = {w: [e[0].elapsed_time(e[1]) for what, e in spans if what == w] for w in ("B1", "any-hit")}
+    log(f"[direct] shadowed dragon frame's hit kernels: B1 {len(span['B1'])} launch(es) "
+        f"{sum(span['B1']):.3f} ms, any-hit kernel {len(span['any-hit'])} launch(es) "
+        f"{sum(span['any-hit']):.3f} ms (CUDA events); {card}")
+    # Every shadowed frame's query (the 11 counted, the instrumented, the
+    # profiled and the spied one) against the twin route on B1's kernel;
+    # the spied frame's also against the plain twin route.
+    check_queries("shadowed dragon frames", queries + timed_query, super_hits.hits2)
+    (srays,), ((tb_s, em, max_rounds, got),) = shadow, timed_query
+    occ_counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    super_occluded.occluded(tb_s, em, max_rounds, counts=occ_counts)
+    st = {}
+    ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev[0].record()
+    want = super_occluded.occluded_reference(tb_s, em, max_rounds, stats=st)
+    ev[1].record()
+    torch.cuda.synchronize()
+    occ_plain_ms = ev[0].elapsed_time(ev[1])
+    occ_bad = occlusion_mismatch(em, got, want)
+    if occ_bad or em.untile(got[1]).numel() != srays.o.shape[0] or not bool(got[2].all()):
+        raise AssertionError(f"the spied frame's shadow rays: {occ_bad} lanes differ from the "
+                             "plain twin route, or a super-tile did not converge")
+    blocked = em.untile(want[1]) > 0.0
+    log(f"[direct] shadowed dragon: {int(blocked.sum())} of {blocked.numel()} shadow rays "
+        f"blocked, flags and converged equal to the plain twin route's on every one; "
+        f"{em.n_super} super-tiles x {em.ids.shape[1]} slots, mean "
+        f"{float(em.en.float().mean()):.1f} emissions, {int(em.overflow.sum())} super-tiles "
+        f"overflowing; the twin route's counts: {st['visits']} visits, {st['live_tests']} live "
+        f"tests; the kernel's: {int(occ_counts[0])} work items, {int(occ_counts[1])} visits, "
+        f"{int(occ_counts[2])} live tests")
+    # The any-hit query alone on those emissions: the kernel against the old
+    # route (B1 over the culled list, then the id-order rounds) and B1's
+    # any-hit launch on the culled list.
+    occ_ms = cuda_events_ms(lambda: super_occluded.occluded(tb_s, em, max_rounds), 20)
+    old_ms = cuda_events_ms(lambda: super_occluded.occluded_reference(
+        tb_s, em, max_rounds, hits=super_hits.hits2), 3)
+    occ_bound, occ_by = occlusion_bound(tb_s, em, max_rounds, st["live_tests"])
+    occ_own, occ_own_by = occlusion_bound(tb_s, em, max_rounds, int(occ_counts[2]))
+    log(f"[time] the shadowed dragon's any-hit query: kernel {occ_ms:.4f} ms, old route "
+        f"{old_ms:.3f} ms ({old_ms / occ_ms:.1f}x), plain twin route {occ_plain_ms:.1f} ms, "
+        f"bound over the twin route's live tests {occ_bound:.4f} ms ({occ_by}; "
+        f"{st['live_tests']} tests), over the kernel's own (its bound_ms) {occ_own:.4f} ms "
+        f"({occ_own_by}; "
+        f"{int(occ_counts[2])} tests, {int(occ_counts[2]) / (occ_ms * 1e9):.3f} T live Moller "
+        f"tests/s); {card}")
+    args = frame_args(em, tb_s)
     err = compare("dragon shadow rays any-hit", super_hits.hits2(*args, True),
                   super_hits.hits2_reference(*args, True))
-    log(f"[direct] shadowed dragon: {n_any} of {len(any_hit)} B1 launches over 11 frames in "
-        f"any-hit mode; "
-        f"{int(blocked_k.sum())} of {blocked_k.numel()} shadow rays blocked, the mask equal to "
-        f"the twin's; {em.n_super} super-tiles x {em.ids.shape[1]} slots, mean "
-        f"{float(em.en.float().mean()):.1f} emissions, {int(em.overflow.sum())} super-tiles "
-        "overflowing (swept in id order)")
-    # B1's any-hit launch on the shadow rays' culled emissions, alone.
     any_ms = cuda_events_ms(lambda: super_hits.hits2(*args, True), 5)
     st = {}
     super_hits.hits2_reference(*args, True, stats=st)
@@ -1401,6 +1649,19 @@ def direct_phase(dev, card: str, kernels, dragon) -> dict:
         f"bound over live tests {b_ms:.4f} ms ({b_by}; {st['live_tests']} tests); the twin's "
         f"counts: {st['staged']} staged slots, {st['rounds']} rounds, {st['visits']} visits, "
         f"per super-tile visits max {int(st['super_visits'].max())}; {card}")
+    # The list alone (round cap 1: no sweep), the path of a mesh whose
+    # super-tiles keep at most K treelets: the kernel against B1's any-hit
+    # launch on the same culled list, after a bitwise check.
+    list_bad = occlusion_mismatch(em, super_occluded.occluded(tb_s, em, 1),
+                                  super_occluded.occluded_reference(tb_s, em, 1,
+                                                                    hits=super_hits.hits2))
+    if list_bad:
+        raise AssertionError(f"the shadowed dragon's culled list alone: {list_bad} lanes "
+                             "differ from B1's any-hit launch")
+    list_ms = cuda_events_ms(lambda: super_occluded.occluded(tb_s, em, 1), 20)
+    log(f"[time] the culled list alone (round cap 1, no sweep): the any-hit kernel "
+        f"{list_ms:.4f} ms, B1's any-hit launch {any_ms:.4f} ms ({any_ms / list_ms:.2f}x); "
+        f"flags equal bit for bit; {card}")
 
     # 10c. W6 E3 (area lights, mirror, glossy; brute force) at 512x512,
     # 1 + 10 frames; the other Cornell rows and worksheets 1-3, 1 + 3.
@@ -1438,7 +1699,10 @@ def direct_phase(dev, card: str, kernels, dragon) -> dict:
         if bad:
             raise AssertionError(f"the 32x32 {name} frame disagrees with the JAX package: "
                                  + "; ".join(bad))
-    return dict(b1_launches=b1_w6 + b1_shadow, b1_err=err)
+    return dict(b1_launches=b1_w6 + b1_shadow, b1_err=err, occ_launches=occ_shadow,
+                occ_bad=occ_bad, occ_ms=occ_ms, occ_old_ms=old_ms, occ_plain_ms=occ_plain_ms,
+                occ_bound_ms=occ_own, occ_by=occ_own_by, occ_twin_bound_ms=occ_bound,
+                occ_list_ms=list_ms, occ_b1_list_ms=any_ms)
 
 
 def timed_steps(step, n: int) -> tuple[float, float, int]:
@@ -1856,7 +2120,7 @@ def dgrad_phase(dev, card: str, kernels, dragon) -> dict:
     any failed check; returns B1's and B2's launches in the phase."""
     from tracer_torch import convert
     from tracer_torch.diff import grad as G
-    from tracer_torch.kernels import scatter_vn, super_hits, treelet_hits
+    from tracer_torch.kernels import scatter_vn, super_hits, super_occluded, treelet_hits
     from tracer_torch.render import texture as tex
     from tracer_torch.scenes.build import build_scene, scene_config
     from tracer_torch.scenes.registry import get_scene
@@ -1927,18 +2191,16 @@ def dgrad_phase(dev, card: str, kernels, dragon) -> dict:
                         torch.ones_like(dscene.materials.diffuse), eps=1e-2, rtol=1e-3)
     log(f"[dgrad] W6 E1 Dragon fd_check materials.diffuse: ad {ad!r} fd {fd!r}")
 
-    # 14b. The shadowed stand-in's step: B1 in both modes, B2.
-    modes = []
-    hits2 = super_hits.hits2
-    super_hits.hits2 = lambda *a: modes.append(bool(a[-1])) or hits2(*a)
-    try:
+    # 14b. The shadowed stand-in's step: B1, the any-hit query's kernel, B2;
+    # each step's query held afterwards against the twin route on the card.
+    with caught_queries() as queries:
         _, _, b1_sh, b2_sh = on_dragon(with_standin_mesh(get_scene("W5 E3 Teapot"), "dragon.obj"),
                                        2, ("geom.vertices", "camera.eye"))
-    finally:
-        super_hits.hits2 = hits2
-    if sum(modes) < 3:
-        raise AssertionError("the shadowed steps did not each run B1 in any-hit mode")
-    log(f"[dgrad] shadowed dragon: {sum(modes)} of {len(modes)} B1 launches in any-hit mode")
+    occ_sh = super_occluded.KERNEL_LAUNCHES
+    if occ_sh < 3 or len(queries) != occ_sh:
+        raise AssertionError(f"the shadowed steps did not each run the any-hit kernel ({occ_sh})")
+    log(f"[dgrad] shadowed dragon: the any-hit kernel launched {occ_sh} times over 3 steps")
+    check_queries("shadowed dragon steps", queries, super_hits.hits2)
 
     # 14c. One step each of W5 E5, W6 E3 and W3 E3 (textured) at their
     # registered sizes; no hand kernel (the Cornell box takes one-hot
@@ -1988,7 +2250,7 @@ def dgrad_phase(dev, card: str, kernels, dragon) -> dict:
                 worst = max(worst, float(np.abs(got - want).max()) / scale)
         log(f"[dgrad 32x32] {name}: the card's gradient equals the CPU's within rtol "
             f"{DGRAD_CARD_RTOL} (largest difference {worst:.3g} of a leaf's largest magnitude)")
-    return dict(b1_launches=b1_w6 + b1_sh, b2_launches=b2_w6 + b2_sh)
+    return dict(b1_launches=b1_w6 + b1_sh, b2_launches=b2_w6 + b2_sh, occ_launches=occ_sh)
 
 
 def walk_phase(dev, card: str, kernels) -> None:
@@ -2435,13 +2697,13 @@ def main() -> int:
     from tracer_torch.accel import flat
     from tracer_torch.diff import grad as G
     from tracer_torch.geometry.device import refresh_tri_table
-    from tracer_torch.kernels import scatter_vn, super_hits, treelet_hits
+    from tracer_torch.kernels import scatter_vn, super_hits, super_occluded, treelet_hits
     from tracer_torch.render import integrator, progressive
     from tracer_torch.scenes.build import build_scene
     from tracer_torch.scenes.registry import get_scene
 
     dev = tracer_torch.cuda_device()
-    kernels = (super_hits, scatter_vn, treelet_hits)
+    kernels = (super_hits, scatter_vn, treelet_hits, super_occluded)
 
     def reset_counts():
         for mod in kernels:
@@ -2488,7 +2750,20 @@ def main() -> int:
                     f"B3 {gen.__name__} {'any-hit' if any_hit else 'closest'} seed {seed}",
                     treelet_hits.hits(*args, any_hit, enear=enear),
                     treelet_hits.hits_reference(*args, any_hit, enear=enear)))
-    log("[kernel vs twin] B2 synthetic streams")
+    log("[kernel vs twin] the any-hit query's kernel on OCCLUSION_CASES")
+    for name in OCCLUSION_CASES:
+        tb_o, em_o, rounds_o = occlusion_case(name, dev)
+        got = super_occluded.occluded(tb_o, em_o, rounds_o)
+        bad = occlusion_mismatch(em_o, got, super_occluded.occluded_reference(
+            tb_o, em_o, rounds_o))
+        if bad or occlusion_mismatch(em_o, got, super_occluded.occluded(tb_o, em_o, rounds_o)):
+            raise AssertionError(f"any-hit query {name}: {bad} lanes differ from the twin "
+                                 "route, or two launches differ")
+        log(f"  any-hit query {name}: {em_o.untile(got[1]).numel()} lanes, "
+            f"{int((em_o.untile(got[1]) > 0).sum())} blocked, "
+            f"{int(em_o.overflow.sum())} of {em_o.n_super} super-tiles overflowing, converged "
+            f"{bool(got[2].all())}; flags, t and converged equal the twin route's bitwise")
+
     b2_err = 0.0
     for name, ids, vals, V in scatter_streams(0):
         ids_t = torch.as_tensor(ids, device=dev)
@@ -2999,6 +3274,22 @@ def main() -> int:
         "bound_ms": b3_bound_ms,
         "bound_by": b3_by,
         "bound_all_lanes_ms": b3_all_ms,
+        "library_ms": None,
+    }, {
+        "name": "super_occluded.occluded",
+        "route": "cuda",
+        "source": "tracer_torch/csrc/super_occluded.cu",
+        "replaces": "tracer/kernels/super_hits.py:262 (any-hit), with tracer/accel/flat.py:573",
+        "launches": dr["occ_launches"] + dg["occ_launches"],
+        "max_abs_err": dr["occ_bad"],
+        "ms": dr["occ_ms"],
+        "old_route_ms": dr["occ_old_ms"],
+        "plain_ms": dr["occ_plain_ms"],
+        "bound_ms": dr["occ_bound_ms"],
+        "bound_by": dr["occ_by"],
+        "bound_twin_route_ms": dr["occ_twin_bound_ms"],
+        "list_only_ms": dr["occ_list_ms"],
+        "b1_list_only_ms": dr["occ_b1_list_ms"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Tests that need the card: the CUDA kernels (super-tile hits B1, vertex-
-cotangent placement B2, treelet hits B3) against their plain-PyTorch twins,
+"""Tests that need the card: the CUDA kernels (super-tile hits B1, B1's
+any-hit query ``super_occluded``, vertex-cotangent placement B2, treelet
+hits B3) against their plain-PyTorch twins,
 and the ported frame, gradient steps and path-mode frames on the card
 against the same on the CPU. They skip where PyTorch sees no CUDA device.
 
@@ -11,6 +12,13 @@ there ``tests/conftest.py`` (which imports JAX) is left out:
 Tolerances:
 * B1 on ``synthetic`` and ``super_lanes``: bit for bit against its twin,
   at TQ = 256 and at TQ = 8.
+* The any-hit query's kernel on ``OCCLUSION_CASES`` (quarters of 8, 64
+  and 256 triangles, overflowing super-tiles, sweeps cut by the round cap,
+  lanes blocked before the query, dead windows, rays that graze quarter-box
+  faces, edges and corners): flags, t and converged bit for bit against the
+  twin route (whose sweep is ungated, so the kernel's sweep gate may not
+  close on a quarter that a lane hits), and against the same route on B1's
+  kernel (the JAX package's order of launches); two launches equal.
 * The frame: none, bit for bit. B1 performs the twin's float32 operations
   in the same order without FMA contraction (``tracer_torch/csrc/
   super_hits.cu``), the flat engine's cull and gates use only exactly
@@ -56,14 +64,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FIXTURES, brute_case, lane_tiles, narrow_quarters, scatter_streams,
-                        seeded_texture, sun_desc, super_lanes, synthetic, synthetic_tiles,
-                        with_fixture_model, with_seeded_env, with_standin_mesh)
+from chip_smoke import (FIXTURES, OCCLUSION_CASES, brute_case, lane_tiles, narrow_quarters,
+                        occlusion_case, scatter_streams, seeded_texture, sun_desc, super_lanes,
+                        synthetic, synthetic_tiles, with_fixture_model, with_seeded_env,
+                        with_standin_mesh)
 from tracer_torch import convert
 from tracer_torch.accel import flat, lbvh, treelet
 from tracer_torch.diff import grad as G
 from tracer_torch.geometry.procedural import bumpy_blob
-from tracer_torch.kernels import intersect, scatter_vn, super_hits, treelet_hits
+from tracer_torch.kernels import (intersect, scatter_vn, super_hits, super_occluded,
+                                  treelet_hits)
 from tracer_torch.kernels.intersect import Rays, make_rays
 from tracer_torch.render import progressive
 from tracer_torch.render import texture as tex
@@ -137,6 +147,45 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(RuntimeError):
         super_hits.hits2(wide, *rest, False)
     assert super_hits.REFERENCE_CALLS == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(OCCLUSION_CASES))
+def test_occluded_kernel_matches_twin(cuda, name):
+    """The any-hit query's kernel against its twin route (plain twin) and
+    against that route on B1's kernel: flags, t and converged bitwise; a
+    second launch gives the same flags; the kernel counted its work."""
+    tb, em, max_rounds = occlusion_case(name, cuda)
+    launches, calls = super_occluded.KERNEL_LAUNCHES, super_occluded.REFERENCE_CALLS
+    counts = torch.zeros(3, dtype=torch.int64, device=cuda)
+    kt, kp, kc = super_occluded.occluded(tb, em, max_rounds, counts=counts)
+    again = super_occluded.occluded(tb, em, max_rounds)
+    torch.cuda.synchronize()
+    assert super_occluded.KERNEL_LAUNCHES == launches + 2
+    assert super_occluded.REFERENCE_CALLS == calls
+    for route in (super_hits.hits2_reference, super_hits.hits2):
+        rt, rp, rc = super_occluded.occluded_reference(tb, em, max_rounds, hits=route)
+        assert _bits_equal(kp, rp) and _bits_equal(kt, rt) and torch.equal(kc, rc)
+    assert _bits_equal(again[1], kp) and torch.equal(again[2], kc)
+    assert int((kp > 0).sum()) > int((em.bp0 > 0).sum()) and int(counts[0]) > 0
+
+
+@pytest.mark.cuda
+def test_occluded_kernel_rejects_what_it_cannot_take(cuda):
+    tb, em, max_rounds = occlusion_case("mixed K=8", cuda)
+    cpu_tb = dataclasses.replace(tb, qblocks=tb.qblocks.cpu())
+    with pytest.raises(ValueError):
+        super_occluded.occluded(cpu_tb, em, max_rounds)
+    with pytest.raises(ValueError):
+        super_occluded.occluded(tb, em, max_rounds, counts=torch.zeros(3, device=cuda))
+    # Quarters of 3200 triangles need more shared memory than a CTA may
+    # have: the launch is refused and the wrapper raises, never the twin.
+    wide = dataclasses.replace(tb, qblocks=torch.zeros((4, 16, 3200), device=cuda),
+                               qbox=torch.zeros((1, 4, 6), device=cuda))
+    calls = super_occluded.REFERENCE_CALLS
+    with pytest.raises(RuntimeError):
+        super_occluded.occluded(wide, em, max_rounds)
+    assert super_occluded.REFERENCE_CALLS == calls
 
 
 @pytest.fixture(scope="module")
@@ -515,7 +564,8 @@ DIRECT_CARD_CASES = {
 def test_direct_frames_on_card_match_cpu(cuda, key):
     """Two direct-mode progressive steps give the same accumulator on the
     card as on the CPU; the bunny rows ran B1 on the card (the shadowed one
-    in any-hit mode too) and never its twin, the others no hand kernel."""
+    its any-hit query too, through ``super_occluded``) and never its twin,
+    the others no hand kernel."""
     row, w, h, sel, textured, standin = DIRECT_CARD_CASES[key]
     desc = get_scene(row)
     if standin is not None:
@@ -527,8 +577,9 @@ def test_direct_frames_on_card_match_cpu(cuda, key):
     desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=w, height=h))
     mods = (super_hits, scatter_vn, treelet_hits)
     accs, modes = {}, []
-    hits2 = super_hits.hits2
+    hits2, occluded = super_hits.hits2, super_occluded.occluded
     super_hits.hits2 = lambda *a: modes.append(bool(a[-1])) or hits2(*a)
+    super_occluded.occluded = lambda *a, **kw: modes.append(True) or occluded(*a, **kw)
     try:
         for dev in ("cpu", cuda):
             scene, cfg = build_scene(desc, dev)
@@ -540,7 +591,7 @@ def test_direct_frames_on_card_match_cpu(cuda, key):
             accs[str(dev)] = progressive.render_progressive(scene, cfg, 2).accum
             after = [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in mods]
     finally:
-        super_hits.hits2 = hits2
+        super_hits.hits2, super_occluded.occluded = hits2, occluded
     assert _bits_equal(accs["cpu"], accs[str(cuda)])
     assert bool(torch.isfinite(accs["cpu"]).all()) and float(accs["cpu"].abs().max()) > 0
     if scene.tb is None:

@@ -9,17 +9,20 @@
   and cut to K emissions. Each emission is refined to its NQ quarter
   blocks, with one 16-bit gate word per quarter (bit s: sub-tile s's
   frustum meets the quarter's box).
-* The emissions feed the super-tile hits kernel
-  (``tracer_torch.kernels.super_hits.hits2``), which is per-ray exact.
-* Super-tiles with more than K survivors sweep the remaining blocks in id
-  order, and a lane whose sweep hits the round cap is reported as not
-  converged. With a temporal seed (last frame's hit distance), lanes whose
-  seeded window found nothing are re-traced with their full window, so the
-  result equals the unseeded one.
+* The closest-hit query feeds the emissions to the super-tile hits
+  kernel (``tracer_torch.kernels.super_hits.hits2``), which is per-ray
+  exact. Super-tiles with more than K survivors sweep the remaining blocks
+  in id order (``super_hits.sweep``), and a lane whose sweep hits the round
+  cap is reported as not converged. With a temporal seed (last frame's hit
+  distance), lanes whose seeded window found nothing are re-traced with
+  their full window, so the result equals the unseeded one.
+* The any-hit query hands the emissions to
+  ``tracer_torch.kernels.super_occluded.occluded``: the culled list and the
+  overflow sweep in one launch, with the same blocked and converged flags.
 
 Host control flow replaces the JAX package's ``lax.cond``/``while_loop``:
-the repair pass runs only when a lane needs it, and the overflow sweep is
-a loop of rounds on the host.
+the repair pass runs only when a lane needs it, and the closest-hit
+overflow sweep is a loop of rounds on the host.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Callable
 import torch
 
 from tracer_torch.accel.treelet import NQ, TreeletBvh
-from tracer_torch.kernels import super_hits
+from tracer_torch.kernels import super_hits, super_occluded
 from tracer_torch.kernels.intersect import Rays
 from tracer_torch.kernels.super_hits import NSUB, SUB, SUPER
 
@@ -234,6 +237,8 @@ class Emissions:
     bp0: torch.Tensor  # (ns, SUPER) initial pids (-1)
     seeded: torch.Tensor | None  # (ns, SUPER) lanes whose window was seeded
     overflow: torch.Tensor  # (ns,) more survivors than K
+    sb: torch.Tensor  # (ns, NSUB, 16) packed sub-tile bounds (``sub_bounds``)
+    prune_sub: torch.Tensor  # (ns, NSUB) initial per-sub-tile window tops
     untile: Callable
 
     @property
@@ -312,7 +317,8 @@ def emissions(rays: Rays, tb: TreeletBvh, frame=None, any_hit: bool = False,
     return Emissions(
         o=o, d=d, tmin=tmin, tmax=tmax, ids=qids.to(torch.int32),
         enear=enear, en=en.to(torch.int32), gm=gm, bt0=bt0, bp0=bp0,
-        seeded=seeded, overflow=total > K, untile=untile,
+        seeded=seeded, overflow=total > K, sb=sb, prune_sub=prune_sub,
+        untile=untile,
     )
 
 
@@ -320,9 +326,22 @@ def _run(rays: Rays, tb: TreeletBvh, frame, any_hit: bool, K: int = K_EMIT,
          seed_t=None, hits=None):
     """(best t, best pid as f32, converged) per ray. ``hits`` is the hits
     function (default ``super_hits.hits2``; ``hits2_reference`` traces the
-    same wavefront with the plain twin)."""
-    hits = hits if hits is not None else super_hits.hits2
+    same wavefront with the plain twin). The any-hit query runs
+    ``super_occluded.occluded`` when ``hits`` is None, and its twin route
+    (``occluded_reference``: ``hits`` over the culled list, then the
+    id-order rounds) when ``hits`` is given."""
     em = emissions(rays, tb, frame, any_hit, K, seed_t)
+    n_super = em.n_super
+    if any_hit:
+        if hits is None:
+            bt, bp, conv_super = super_occluded.occluded(tb, em, MAX_ROUNDS)
+        else:
+            bt, bp, conv_super = super_occluded.occluded_reference(
+                tb, em, MAX_ROUNDS, hits=hits)
+        conv = em.untile(conv_super[:, None].expand(n_super, SUPER))
+        return em.untile(bt), em.untile(bp), conv
+
+    hits = hits if hits is not None else super_hits.hits2
     args = (em.o, em.d, em.tmin)
     bt, bp = hits(tb, em.ids, em.enear, em.en, em.gm, *args, em.bt0, em.bp0,
                   any_hit)
@@ -345,28 +364,9 @@ def _run(rays: Rays, tb: TreeletBvh, frame, any_hit: bool, K: int = K_EMIT,
             bp = torch.where(unresolved, bpr, bp)
 
     # Overflow super-tiles (survivors > K) sweep all quarter blocks in id
-    # order; every sub-tile is gated on and the stream break is disabled
-    # (enear = 0), the kernel's per-sub bound check still culls.
-    n_super = em.n_super
-    KD = em.ids.shape[1]
-    ND = tb.NT * NQ
-    rounds = 1
-    if bool(em.overflow.any()):
-        dev = em.o.device
-        iota = torch.arange(KD, dtype=torch.int32, device=dev).expand(n_super, KD)
-        zeros = torch.zeros((n_super, KD), dtype=torch.float32, device=dev)
-        full_mask = torch.full((n_super, KD), (1 << NSUB) - 1,
-                               dtype=torch.int32, device=dev)
-        while (rounds - 1) * KD < ND and rounds < MAX_ROUNDS:
-            base = (rounds - 1) * KD
-            ids_r = torch.clamp_max(iota + base, ND - 1)
-            en_r = torch.where(em.overflow, min(max(ND - base, 0), KD), 0)
-            bt, bp = hits(tb, ids_r, zeros, en_r.to(torch.int32), full_mask,
-                          *args, bt, bp, any_hit)
-            rounds += 1
-    # Converged iff the sweep covered every block before the round cap: a
-    # clipped traversal is flagged, never silent.
-    conv_super = ~em.overflow | ((rounds - 1) * KD >= ND)
+    # order; a clipped traversal is flagged, never silent.
+    bt, bp, conv_super = super_hits.sweep(hits, tb, em.ids.shape[1], em.overflow,
+                                          *args, bt, bp, any_hit, MAX_ROUNDS)
     conv = em.untile(conv_super[:, None].expand(n_super, SUPER))
     return em.untile(bt), em.untile(bp), conv
 
