@@ -31,9 +31,12 @@ Phases (each raises on failure, so the script exits non-zero):
               ``OCCLUSION_CASES`` (a bumpy blob, quarters of 8, 64 and 256
               triangles, overflowing super-tiles, sweeps cut by the round
               cap, lanes blocked before the query, dead windows, rays that
-              graze quarter-box faces, edges and corners): flags, t and
-              converged equal to the plain twin route's (whose sweep is
-              ungated) bit for bit, and two launches equal;
+              graze quarter-box faces, edges and corners, rays at cos
+              2^-16 to 2^-24 to a triangle's normal aimed just outside its
+              quarter's box): flags, t and converged equal to the plain
+              twin route's (whose sweep is ungated) bit for bit, two
+              launches equal, and the kernel's sweep gates equal to
+              ``sweep_gates`` on every (sub-tile, quarter) pair;
 4. frame    — ``Project: Dragon`` at 800x450 (the 869,880-triangle stand-in,
               native LBVH) through 1 warm-up and 20 timed
               ``progressive.step`` frames, then checks: every frame ran B1
@@ -134,6 +137,9 @@ Phases (each raises on failure, so the script exits non-zero):
               old route (B1 over the culled list, then 16 id-order rounds)
               on those rays, its bound over its own live tests (the
               ``kernels`` line's ``bound_ms``) and over the twin route's,
+              its sweep gates (the kernel's device function) equal to
+              ``sweep_gates`` on every (sub-tile, quarter) pair and the
+              share of the sweep's pairs they leave open,
               B1 bitwise equal to its twin on their culled emissions in
               any-hit mode, and the list alone (round cap 1) through the
               kernel, held to and timed against B1's any-hit launch. ``W6 E3 Cornell Box`` at 512x512 (mirror, glossy,
@@ -563,8 +569,9 @@ def _synthetic_scene(rs, device, n: int, plane: bool = False):
     pids.reshape(-1)[:ntri] = rs.permutation(ntri)
     valid = np.arange(NT * T).reshape(NT, T) < ntri
     t = lambda x: torch.as_tensor(x, device=device)
-    qblocks, qbox = treelet.assemble_blocks(t(verts), t(idx), t(pids), t(valid))
-    tb = treelet.TreeletBvh(qblocks=qblocks, qbox=qbox, t_lo=t(np.zeros((NT, 3), np.float32)),
+    qblocks, qbox, qnorm = treelet.assemble_blocks(t(verts), t(idx), t(pids), t(valid))
+    tb = treelet.TreeletBvh(qblocks=qblocks, qbox=qbox, qnorm=qnorm,
+                            t_lo=t(np.zeros((NT, 3), np.float32)),
                             t_hi=t(np.zeros((NT, 3), np.float32)),
                             top=t(np.zeros((1, 8, 8), np.float32)), T=T, depth=1)
     o = np.float32([0.0, 0.0, 3.0]) + rs.normal(0.0, 0.05, (n, 3)).astype(np.float32)
@@ -775,11 +782,15 @@ OCCLUSION_CASES = {
     "graze K=2": (24, 32, "graze", 6, 2, 4096, 0.0),
     "graze K=2 TQ=64": (24, 256, "graze", 7, 2, 4096, 0.0),
     "graze K=4 TQ=256": (64, 1024, "graze", 8, 4, 4096, 0.0),
+    "coplanar 2^-16 K=2": (24, 32, "coplanar 16", 9, 2, 4096, 0.0),
+    "coplanar 2^-20 K=2": (24, 32, "coplanar 20", 10, 2, 4096, 0.0),
+    "coplanar 2^-24 K=2": (24, 32, "coplanar 24", 11, 2, 4096, 0.0),
+    "coplanar 2^-20 K=2 TQ=256": (64, 1024, "coplanar 20", 12, 2, 4096, 0.0),
 }
 OCCLUSION_FRAME = (41, 29)
 
 
-def occlusion_rays(kind: str, seed: int, mesh):
+def occlusion_rays(kind: str, seed: int, mesh, T: int = 32):
     """(o, d, tmin, tmax, frame) as numpy from a seed. ``frame``: a 41x29
     pinhole frame from (0.1, 0, 3) towards the blob, windows to 2.5;
     ``mixed``: 1024 rays, half from one point around (3, 0.2, 0.1) into the
@@ -792,7 +803,14 @@ def occlusion_rays(kind: str, seed: int, mesh):
     vertex (that coordinate of d exactly 0, of o 0, 1 or 2 ulps off the
     vertex's on either side), a third from afar at the vertex or an ulp
     beside it, a third from origins on the vertex's axis plane, windows
-    [1e-5, 4)."""
+    [1e-5, 4); ``coplanar c`` (c = 16, 20 or 24): 64 sub-tiles of 128
+    rays, each sub-tile from one origin 2.5 away, almost in the plane of
+    one triangle whose vertex lies on a face of its quarter's box (treelets
+    of ``T``), at cos 2^-c to the plane's normal and aimed past that vertex,
+    outside the box, by 0.5-64 times 8 * 2^-16 along the plane, windows
+    [1e-5, 4): where a Möller test in float32 accepts such a ray, its t
+    and barycentrics are ill-conditioned (the sweep gate's conditioning
+    term)."""
     rs = np.random.RandomState(seed)
     if kind == "frame":
         W, H = OCCLUSION_FRAME
@@ -845,6 +863,10 @@ def occlusion_rays(kind: str, seed: int, mesh):
         o, d = np.concatenate(o).astype(np.float64), np.concatenate(d)
         n = o.shape[0]
         tmin, tmax, frame = np.full(n, 1e-5), np.full(n, 4.0), None
+    elif kind.startswith("coplanar"):
+        o, d = coplanar_rays(rs, mesh, T, 2.0 ** -int(kind.split()[1]))
+        n = o.shape[0]
+        tmin, tmax, frame = np.full(n, 1e-5), np.full(n, 4.0), None
     else:
         n = 4096
         tri = mesh.vertices[mesh.indices[rs.randint(0, mesh.indices.shape[0], n)]]
@@ -856,6 +878,46 @@ def occlusion_rays(kind: str, seed: int, mesh):
     d = d / np.linalg.norm(d, axis=1, keepdims=True)
     f = np.float32
     return o.astype(f), d.astype(f), tmin.astype(f), tmax.astype(f), frame
+
+
+def coplanar_rays(rs, mesh, T: int, cos: float, n_sub: int = 64):
+    """The ``coplanar`` rays of ``occlusion_rays``: (o, d) float64, n_sub
+    sub-tiles of 128. Quarters are those of the port's treelet cut of
+    ``mesh`` with ``T`` triangles a treelet (the JAX package cuts the
+    same)."""
+    from tracer_torch.accel import lbvh, treelet
+
+    host = treelet.build_host(lbvh.build(*mesh.bboxes(), max_prims=4), T=T)
+    tq = T // treelet.NQ
+    V = mesh.vertices.astype(np.float64)
+    o, d = [], []
+    while len(o) < n_sub:
+        b, j = rs.randint(host.pids.shape[0]), rs.randint(treelet.NQ)
+        slots = np.arange(j * tq, (j + 1) * tq)
+        slots = slots[slots < host.counts[b]]
+        if slots.size == 0:
+            continue
+        tri = mesh.indices[host.pids[b, slots]]  # (m, 3) vertex ids
+        pts = V[tri]  # (m, 3, 3)
+        k, side = rs.randint(3), rs.randint(2)
+        face = pts[..., k].max() if side else pts[..., k].min()
+        at = np.argwhere(pts[..., k] == face)
+        i, c = at[rs.randint(at.shape[0])]
+        v = pts[i, c]
+        nrm = np.cross(pts[i, 1] - pts[i, 0], pts[i, 2] - pts[i, 0])
+        nrm /= np.linalg.norm(nrm)
+        out = np.eye(3)[k] * (1.0 if side else -1.0)
+        p = out - (out @ nrm) * nrm  # the outward axis, projected into the plane
+        if np.linalg.norm(p) < 0.3:
+            continue
+        p /= np.linalg.norm(p)
+        w = np.cross(nrm, p) * rs.choice([-1.0, 1.0])  # in the plane, along the face
+        d0 = np.sqrt(1.0 - cos * cos) * w + cos * rs.choice([-1.0, 1.0]) * nrm
+        og = v - 2.5 * d0
+        aim = v + (8.0 * 2.0 ** -16 * 2.0 ** rs.uniform(-1.0, 6.0, 128))[:, None] * p
+        o.append(np.repeat(og[None], 128, axis=0))
+        d.append(aim - og)
+    return np.concatenate(o), np.concatenate(d)
 
 
 def occlusion_case(name: str, device):
@@ -872,7 +934,7 @@ def occlusion_case(name: str, device):
     host = treelet.build_host(lbvh.build(*mesh.bboxes(), max_prims=4), T=T)
     tb = treelet.from_host(host, torch.as_tensor(mesh.vertices, device=device),
                            torch.as_tensor(mesh.indices.astype(np.int32), device=device))
-    o, d, tmin, tmax, frame = occlusion_rays(kind, seed, mesh)
+    o, d, tmin, tmax, frame = occlusion_rays(kind, seed, mesh, T)
     t = lambda x: torch.as_tensor(x, device=device)
     em = flat.emissions(make_rays(t(o), t(d), t(tmin), t(tmax)), tb, frame,
                         any_hit=True, K=K)
@@ -1095,6 +1157,25 @@ def occlusion_mismatch(em, got, want) -> int:
     bits = lambda x: x.contiguous().view(torch.int32)
     bad = (bits(kt) != bits(rt)) | (bits(kp) != bits(rp)) | (kc != rc)[:, None].expand(-1, SUPER)
     return int(em.untile(bad).sum())
+
+
+def check_sweep_gates(name: str, tb, em, max_rounds: int) -> tuple[int, int]:
+    """The kernel's sweep gates (``kernel_sweep_gates``: the query's own
+    gate code over every (sub-tile, quarter) pair) against ``sweep_gates``
+    (the plain version, on the same device), bit for bit; raises on any
+    pair that differs.
+    Returns ``open_share``: the swept pairs left open, and all of them."""
+    from tracer_torch.kernels import super_occluded
+
+    got = super_occluded.kernel_sweep_gates(tb, em)
+    bad = int((got != super_occluded.sweep_gates(tb, em)).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} (sub-tile, quarter) gates differ from sweep_gates")
+    n_open, n_pairs = super_occluded.open_share(tb, em, got, max_rounds)
+    log(f"  {name}: {got.numel()} (sub-tile, quarter) gates equal sweep_gates' bit for bit; "
+        f"the sweep's pairs left open: {n_open} of {n_pairs}"
+        + (f" ({n_open / n_pairs:.4%})" if n_pairs else ""))
+    return n_open, n_pairs
 
 
 def check_queries(name: str, calls, hits) -> None:
@@ -1623,6 +1704,7 @@ def direct_phase(dev, card: str, kernels, dragon) -> dict:
         f"overflowing; the twin route's counts: {st['visits']} visits, {st['live_tests']} live "
         f"tests; the kernel's: {int(occ_counts[0])} work items, {int(occ_counts[1])} visits, "
         f"{int(occ_counts[2])} live tests")
+    n_open, n_pairs = check_sweep_gates("the shadowed dragon's sweep gates", tb_s, em, max_rounds)
     # The any-hit query alone on those emissions: the kernel against the old
     # route (B1 over the culled list, then the id-order rounds) and B1's
     # any-hit launch on the culled list.
@@ -1702,7 +1784,8 @@ def direct_phase(dev, card: str, kernels, dragon) -> dict:
     return dict(b1_launches=b1_w6 + b1_shadow, b1_err=err, occ_launches=occ_shadow,
                 occ_bad=occ_bad, occ_ms=occ_ms, occ_old_ms=old_ms, occ_plain_ms=occ_plain_ms,
                 occ_bound_ms=occ_own, occ_by=occ_own_by, occ_twin_bound_ms=occ_bound,
-                occ_list_ms=list_ms, occ_b1_list_ms=any_ms)
+                occ_list_ms=list_ms, occ_b1_list_ms=any_ms, occ_live_tests=int(occ_counts[2]),
+                occ_open_pairs=n_open, occ_sweep_pairs=n_pairs)
 
 
 def timed_steps(step, n: int) -> tuple[float, float, int]:
@@ -2763,6 +2846,7 @@ def main() -> int:
             f"{int((em_o.untile(got[1]) > 0).sum())} blocked, "
             f"{int(em_o.overflow.sum())} of {em_o.n_super} super-tiles overflowing, converged "
             f"{bool(got[2].all())}; flags, t and converged equal the twin route's bitwise")
+        check_sweep_gates(f"any-hit query {name}", tb_o, em_o, rounds_o)
 
     b2_err = 0.0
     for name, ids, vals, V in scatter_streams(0):
@@ -3290,6 +3374,9 @@ def main() -> int:
         "bound_twin_route_ms": dr["occ_twin_bound_ms"],
         "list_only_ms": dr["occ_list_ms"],
         "b1_list_only_ms": dr["occ_b1_list_ms"],
+        "live_tests": dr["occ_live_tests"],
+        "sweep_pairs_open": dr["occ_open_pairs"],
+        "sweep_pairs": dr["occ_sweep_pairs"],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

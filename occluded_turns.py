@@ -17,7 +17,10 @@ A script beside ``chip_smoke.py`` (it uses the smoke's helpers and
 On the shadowed dragon (``W5 E3 Teapot`` on the stand-in, 800x450: the
 directional light's 360,000 shadow rays) it catches one frame's query and
 holds every route's flags and converged flags to the old route's, bit for
-bit, with each kernel's own counts (work items, visits, live tests). Then,
+bit, with each kernel's own counts (work items, visits, live tests) and
+the share of the sweep's (sub-tile, quarter) pairs its gate leaves open
+(each checkout's plain ``sweep_gates`` on the card; this checkout's also
+held to its kernel's gates bit for bit). Then,
 for each name of ``--turns`` in order, it times the query (CUDA events over
 ``--reps`` calls, after one) and the shadowed frame (``progressive.step``,
 1 warm-up and ``--frames`` timed, that route serving the frame's query).
@@ -47,8 +50,8 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("occluded_turns: torch.cuda.is_available() is false")
-    from chip_smoke import (caught_queries, cuda_events_ms, log, occlusion_mismatch,
-                            timed_frames, with_standin_mesh)
+    from chip_smoke import (caught_queries, check_sweep_gates, cuda_events_ms, log,
+                            occlusion_mismatch, timed_frames, with_standin_mesh)
 
     import turns as T
 
@@ -85,15 +88,20 @@ def main(argv=None) -> int:
         progressive.step(scene, cfg, state)
     (tb, em, max_rounds, _), = caught
     want = routes["old"](tb, em, max_rounds)
+    check_sweep_gates("new", tb, em, max_rounds)
+    work = {}
     for name, mod in mods.items():
         counts = torch.zeros(3, dtype=torch.int64, device=dev)
         got = mod.occluded(tb, em, max_rounds, counts=counts)
         bad = occlusion_mismatch(em, got, want)
         if bad:
             raise AssertionError(f"occluded_turns: {name} differs from the old route on {bad} lanes")
+        n_open, n_pairs = super_occluded.open_share(tb, em, mod.sweep_gates(tb, em), max_rounds)
+        work[name] = dict(live_tests=int(counts[2]), open_pairs=n_open, sweep_pairs=n_pairs)
         log(f"[check] {name}: flags and converged equal to the old route's on all "
             f"{em.untile(got[1]).numel()} lanes; {int(counts[0])} work items, "
-            f"{int(counts[1])} visits, {int(counts[2])} live tests")
+            f"{int(counts[1])} visits, {int(counts[2])} live tests; its gate leaves "
+            f"{n_open} of {n_pairs} sweep pairs open ({n_open / max(n_pairs, 1):.4%})")
 
     rows = []
     for i, name in enumerate(turns):
@@ -109,7 +117,7 @@ def main(argv=None) -> int:
         finally:
             super_occluded.occluded = new_occluded
         rows.append(dict(turn=i, name=name, query_ms=query_ms, frame_ms=frame_ms,
-                         frame_host_ms=frame_host))
+                         frame_host_ms=frame_host, **work.get(name, {})))
         log(f"[turn {i}] {name}: the query {query_ms:.4f} ms, the shadowed frame "
             f"{frame_ms:.3f} ms/frame (host clock {frame_host:.3f}); {smi}")
     T.write_turns(rows, ("query_ms", "frame_ms"), args.out, smi)

@@ -15,10 +15,13 @@ Tolerances:
 * The any-hit query's kernel on ``OCCLUSION_CASES`` (quarters of 8, 64
   and 256 triangles, overflowing super-tiles, sweeps cut by the round cap,
   lanes blocked before the query, dead windows, rays that graze quarter-box
-  faces, edges and corners): flags, t and converged bit for bit against the
+  faces, edges and corners, rays almost in a triangle's plane aimed just
+  outside its quarter's box): flags, t and converged bit for bit against the
   twin route (whose sweep is ungated, so the kernel's sweep gate may not
   close on a quarter that a lane hits), and against the same route on B1's
-  kernel (the JAX package's order of launches); two launches equal.
+  kernel (the JAX package's order of launches); two launches equal. The
+  kernel's sweep gates equal ``sweep_gates`` on the card and on a CPU copy,
+  bit for bit.
 * The frame: none, bit for bit. B1 performs the twin's float32 operations
   in the same order without FMA contraction (``tracer_torch/csrc/
   super_hits.cu``), the flat engine's cull and gates use only exactly
@@ -171,6 +174,22 @@ def test_occluded_kernel_matches_twin(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", list(OCCLUSION_CASES))
+def test_kernel_sweep_gates_equal_the_plain_version(cuda, name):
+    """The kernel's sweep gate (its device function, ``kernel_sweep_gates``)
+    equals ``sweep_gates`` on every (sub-tile, quarter) pair, computed on
+    the card and on a CPU copy, bit for bit."""
+    tb, em, _ = occlusion_case(name, cuda)
+    got = super_occluded.kernel_sweep_gates(tb, em)
+    assert torch.equal(got, super_occluded.sweep_gates(tb, em))
+    cpu_tb = dataclasses.replace(tb, qbox=tb.qbox.cpu(), qnorm=tb.qnorm.cpu(),
+                                 qblocks=tb.qblocks.cpu())
+    cpu_em = dataclasses.replace(em, sb=em.sb.cpu(), prune_sub=em.prune_sub.cpu())
+    assert torch.equal(got.cpu(), super_occluded.sweep_gates(cpu_tb, cpu_em))
+    assert bool(got.any()) and not bool(got.all())
+
+
+@pytest.mark.cuda
 def test_occluded_kernel_rejects_what_it_cannot_take(cuda):
     tb, em, max_rounds = occlusion_case("mixed K=8", cuda)
     cpu_tb = dataclasses.replace(tb, qblocks=tb.qblocks.cpu())
@@ -181,7 +200,8 @@ def test_occluded_kernel_rejects_what_it_cannot_take(cuda):
     # Quarters of 3200 triangles need more shared memory than a CTA may
     # have: the launch is refused and the wrapper raises, never the twin.
     wide = dataclasses.replace(tb, qblocks=torch.zeros((4, 16, 3200), device=cuda),
-                               qbox=torch.zeros((1, 4, 6), device=cuda))
+                               qbox=torch.zeros((1, 4, 6), device=cuda),
+                               qnorm=torch.zeros((1, 4, 8), device=cuda))
     calls = super_occluded.REFERENCE_CALLS
     with pytest.raises(RuntimeError):
         super_occluded.occluded(wide, em, max_rounds)

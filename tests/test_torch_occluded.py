@@ -7,21 +7,29 @@ with a seed (a pinhole frame, mixed coherent and incoherent rays with dead
 windows, parallel shadow rays towards a directional light, rays that graze
 quarter-box faces, edges and corners through mesh vertices), at K = 96
 (no overflow), 8, 4 and 2 (overflowing super-tiles sweep every quarter in
-id order) and round caps of 4096, 2 and 1 (the sweep cut short). The JAX
-side builds the treelets; the port gets the same tables through
-``convert.treelet_from_arrays``. The CUDA kernel is held against the twin
-route on the card in ``tests/test_torch_cuda.py``.
+id order) and round caps of 4096, 2 and 1 (the sweep cut short), and rays
+almost in the plane of a triangle (cos 2^-16, 2^-20, 2^-24 to its normal)
+aimed just outside its quarter's box. The JAX side builds the treelets;
+the port gets the same tables through ``convert.treelet_from_arrays``. The
+CUDA kernel is held against the twin route on the card in
+``tests/test_torch_cuda.py``.
 
 Tolerance: none. The blocked flags, the best t row and the converged flags
 must be equal bit for bit: both sides test the same quarter blocks with
 the same Möller formula and a lane's flag is an OR over them (XLA's FMA
 contraction moves t by a few ulp at most, which decides a flag only for a
 hit exactly at a window's edge; none of these rays has one). The grazing
-rays are aimed where rounding decides, so against JAX their flags are
-held bitwise on the lanes that a float64 re-test does not dispute, and
-every lane that differs must be disputed. The kernel's sweep gate
-(``sweep_gates``, its plain version) must be open on every (sub-tile,
-quarter) pair where the twin's Möller test finds a hit.
+and near-coplanar rays are aimed where rounding decides, so against JAX
+their flags are held bitwise on the lanes that a float64 re-test does not
+dispute, and every lane that differs must be disputed. XLA's CPU backend
+contracts a * b + c into one FMA, the port never does: a model of the JAX
+side's Möller test with those contractions gives JAX's flag on most of the
+lanes that differ. The kernel's sweep gate (``sweep_gates``, its plain
+version) must be open on every (sub-tile, quarter) pair where the twin's
+Möller test finds a hit, a model of the kernel's flags (the culled list,
+then the sweep through those gates) must equal the twin route's on every
+lane, and every point that a float32 Möller test accepts must lie within
+the written bound of ``csrc/super_occluded.cu`` of its quarter's box.
 """
 
 from __future__ import annotations
@@ -50,12 +58,17 @@ from tracer_torch.kernels.intersect import make_rays
 share_cores()
 
 # The grazing rays aim at vertices and slide along axis planes through them,
-# so a share of their flags turns on float32 rounding, where XLA's FMA
-# contraction and the twin's separate roundings may differ: they are held
-# to the JAX package on the lanes that are not disputed.
+# the coplanar rays run almost in a triangle's plane, so a share of their
+# flags turns on float32 rounding, where XLA's FMA contraction and the
+# twin's separate roundings may differ: they are held to the JAX package on
+# the lanes that are not disputed.
+ROUNDING_KINDS = ("graze", "coplanar")
 JAX_CASES = [name for name, case in OCCLUSION_CASES.items()
-             if not case[6] and case[2] != "graze"]
-GRAZE_CASES = [name for name, case in OCCLUSION_CASES.items() if case[2] == "graze"]
+             if not case[6] and case[2].split()[0] not in ROUNDING_KINDS]
+GRAZE_CASES = [name for name, case in OCCLUSION_CASES.items()
+               if case[2].split()[0] in ROUNDING_KINDS]
+COPLANAR_CASES = [name for name, case in OCCLUSION_CASES.items()
+                  if case[2].startswith("coplanar")]
 # A lane is disputed when no triangle holds it inside the Möller test's
 # acceptance region by more than this margin and some triangle lies within
 # it. Margins are in barycentric units (the window's ends relative to
@@ -84,7 +97,7 @@ def test_twin_route_matches_jax(blobs, name, monkeypatch):
     converged bitwise, with the case's K and round cap on both sides."""
     n_sub, T, kind, seed, K, max_rounds, _ = OCCLUSION_CASES[name]
     mesh, jtb, ptb = blobs[n_sub, T]
-    o, d, tmin, tmax, frame = occlusion_rays(kind, seed, mesh)
+    o, d, tmin, tmax, frame = occlusion_rays(kind, seed, mesh, T)
     monkeypatch.setattr(jax_flat, "MAX_ROUNDS", max_rounds)
     monkeypatch.setattr(flat, "MAX_ROUNDS", max_rounds)
     jr = jax_make_rays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin), jnp.asarray(tmax))
@@ -137,15 +150,38 @@ def _disputed(o, d, tmin, tmax, mesh, chunk=256):
     return np.concatenate(disputed), np.concatenate(blocked)
 
 
+def _fma_flags(blocks, o, d, tmin, tmax):
+    """(N,) bool: some valid triangle of ``blocks`` (16, n) accepts the
+    ray in its window under ``_moller_tile`` of the JAX package as XLA's
+    CPU backend compiles it, each a * b + rest one FMA (a * b + c * d as
+    fma(a, b, c * d)), modelled in float64 and rounded to float32."""
+    f = np.float32
+    fma = lambda a, b, c: (a.astype(np.float64) * b + c).astype(f)
+    c = lambda j: blocks[j][None, :]
+    ox, oy, oz, dx, dy, dz = (x[:, None] for x in (*o.T, *d.T))
+    dot = lambda x0, y0, x1, y1, x2, y2: fma(x2, y2, fma(x0, y0, x1 * y1))
+    inv = f(1.0) / dot(c(11), dx, c(12), dy, c(13), dz)
+    t = (c(14) - dot(c(11), ox, c(12), oy, c(13), oz)) * inv
+    sx, sy, sz = c(0) - ox, c(1) - oy, c(2) - oz
+    nomx, nomy, nomz = fma(sy, dz, -(sz * dy)), fma(sz, dx, -(sx * dz)), fma(sx, dy, -(sy * dx))
+    beta = dot(nomx, c(6), nomy, c(7), nomz, c(8)) * inv
+    gamma = -dot(nomx, c(3), nomy, c(4), nomz, c(5)) * inv
+    ok = ((beta >= 0) & (gamma >= 0) & (beta + gamma <= 1) & (t >= tmin[:, None])
+          & (t < tmax[:, None]) & (c(10) > 0.5))
+    return ok.any(axis=1)
+
+
 @pytest.mark.parametrize("name", GRAZE_CASES)
 def test_twin_route_matches_jax_on_grazing_rays(blobs, name, monkeypatch):
-    """The grazing cases through ``flat._run(any_hit=True)`` on both sides:
-    t and converged bitwise; the flags equal on every lane that is not
-    disputed, and there equal to float64's answer; every lane whose flag
-    differs is disputed."""
+    """The grazing and coplanar cases through ``flat._run(any_hit=True)``
+    on both sides: t and converged bitwise; the flags equal on every lane
+    that is not disputed, and there equal to float64's answer; every lane
+    whose flag differs is disputed, and on at least three in four of them
+    the FMA model of the JAX side (``_fma_flags``, every quarter tested:
+    the sweep of these cases reaches all) gives JAX's flag."""
     n_sub, T, kind, seed, K, max_rounds, _ = OCCLUSION_CASES[name]
     mesh, jtb, ptb = blobs[n_sub, T]
-    o, d, tmin, tmax, frame = occlusion_rays(kind, seed, mesh)
+    o, d, tmin, tmax, frame = occlusion_rays(kind, seed, mesh, T)
     monkeypatch.setattr(jax_flat, "MAX_ROUNDS", max_rounds)
     monkeypatch.setattr(flat, "MAX_ROUNDS", max_rounds)
     jr = jax_make_rays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin), jnp.asarray(tmax))
@@ -161,6 +197,11 @@ def test_twin_route_matches_jax_on_grazing_rays(blobs, name, monkeypatch):
     assert np.array_equal(pp[~disputed] > 0, blocked[~disputed])
     assert np.array_equal(pp[~disputed], jp[~disputed])
     assert disputed[pp != jp].all()
+    lanes = np.nonzero(pp != jp)[0]
+    assert lanes.size > 0
+    fma = _fma_flags(np.concatenate(list(ptb.qblocks.numpy()), axis=1),
+                     o[lanes], d[lanes], tmin[lanes], tmax[lanes])
+    assert 4 * int((fma == (jp[lanes] > 0)).sum()) >= 3 * lanes.size
 
 
 def test_any_hit_at_k96_matches_jax(blobs):
@@ -223,6 +264,9 @@ def test_the_wrapper_takes_the_twin_on_the_cpu_and_refuses_other_devices():
     meta = dataclasses.replace(em, o=em.o.to("meta"))
     with pytest.raises(RuntimeError):
         super_occluded.occluded(tb, meta, max_rounds)
+    # The gate check runs only the kernel's device function: no CPU path.
+    with pytest.raises(RuntimeError):
+        super_occluded.kernel_sweep_gates(tb, em)
     assert super_occluded.KERNEL_LAUNCHES == launches
 
 
@@ -289,19 +333,21 @@ def _hit_pairs(tb, em):
 
 @pytest.mark.parametrize("name", list(OCCLUSION_CASES))
 def test_sweep_gates_without_margin_are_the_culled_lists_gates(name, monkeypatch):
-    """``sweep_gates`` with no margin equals ``_gate_words(_sub_gates_raw)``
-    over every treelet, for every (super-tile, quarter) pair; the margin
-    only opens gates."""
+    """``sweep_gates`` with no margin (``GATE_PAD = COND_PAD = 0``) equals
+    ``_gate_words(_sub_gates_raw)`` over every treelet, for every
+    (super-tile, quarter) pair; the margins only open gates."""
     tb, em, _ = occlusion_case(name, "cpu")
     ids = torch.arange(tb.NT, dtype=torch.int64).expand(em.n_super, -1)
     ok, _ = flat._sub_gates_raw(tb, ids, em.sb, em.prune_sub)  # (ns, NT, NSUB, NQ)
     words = flat._gate_words(ok)  # (ns, NT * NQ)
     gates = super_occluded.sweep_gates(tb, em)
+    monkeypatch.setattr(super_occluded, "COND_PAD", 0.0)
+    padded = super_occluded.sweep_gates(tb, em)
     monkeypatch.setattr(super_occluded, "GATE_PAD", 0.0)
     raw = super_occluded.sweep_gates(tb, em)
     bits = torch.arange(16, dtype=torch.int32)
     assert torch.equal(((words[:, None, :] >> bits[None, :, None]) & 1).bool(), raw)
-    assert bool((gates | ~raw).all())
+    assert bool((padded | ~raw).all()) and bool((gates | ~padded).all())
 
 
 @pytest.mark.parametrize("name", list(OCCLUSION_CASES))
@@ -309,11 +355,156 @@ def test_sweep_gates_are_open_wherever_a_lane_hits(name, monkeypatch):
     """The kernel may skip a sweep quarter for a sub-tile only where the
     ungated twin finds no hit there: every (sub-tile, quarter) pair with a
     Möller hit of one of its lanes has its gate open. On the grazing rays
-    the gate without its margin fails this (the reason for the margin)."""
+    the gate without its margins fails this, and on the coplanar rays the
+    gate without its second term (``COND_PAD = 0``: the box grown by 2^-16
+    of the coordinates only)."""
     tb, em, _ = occlusion_case(name, "cpu")
     hits = _hit_pairs(tb, em)
     assert bool(hits.any())
     assert not bool((hits & ~super_occluded.sweep_gates(tb, em)).any())
+    if name in COPLANAR_CASES:
+        monkeypatch.setattr(super_occluded, "COND_PAD", 0.0)
+        assert bool((hits & ~super_occluded.sweep_gates(tb, em)).any())
     if name == "graze K=2":
+        monkeypatch.setattr(super_occluded, "COND_PAD", 0.0)
         monkeypatch.setattr(super_occluded, "GATE_PAD", 0.0)
         assert bool((hits & ~super_occluded.sweep_gates(tb, em)).any())
+
+
+def _model_flags(tb, em, max_rounds):
+    """The kernel's blocked flags, modelled on the CPU: the twin's B1 over
+    the culled list (its gate words and skip rule), then for overflowing
+    super-tiles every quarter of the sweep's length that ``sweep_gates``
+    lets through, each lane tested with the twin's Möller test. A flag is
+    an OR over the blocks, so the order of the tests does not matter."""
+    args = (em.o, em.d, em.tmin)
+    _, flags = super_hits.hits2_reference(tb, em.ids, em.enear, em.en, em.gm, *args, em.bt0,
+                                          em.bp0, True)
+    n_sub = em.n_super * super_hits.NSUB
+    n_sweep = super_occluded.sweep_length(tb.qblocks.shape[0], em.ids.shape[1], max_rounds)
+    gates = (super_occluded.sweep_gates(tb, em).reshape(n_sub, -1)
+             & em.overflow.repeat_interleave(super_hits.NSUB)[:, None])
+    rays = torch.cat([em.o, em.d, em.tmin[..., None]], dim=-1).reshape(n_sub, super_hits.SUB, 7)
+    upper = em.bt0.reshape(n_sub, super_hits.SUB)
+    live = rays[..., 6] < upper
+    hit = torch.zeros_like(live)
+    for q in range(n_sweep):
+        pid = super_hits.moller_tile(tb.qblocks[q][None].expand(n_sub, -1, -1), rays, upper)[1]
+        hit |= (pid >= 0.0) & live & gates[:, q, None]
+    return torch.where(hit.reshape(flags.shape), 1.0, flags)
+
+
+@pytest.mark.parametrize("name", list(OCCLUSION_CASES))
+def test_kernel_model_flags_equal_the_twin_routes(name):
+    """The kernel's flags as ``_model_flags`` models them equal the twin
+    route's (``occluded_reference``, an ungated sweep) on every lane."""
+    tb, em, max_rounds = occlusion_case(name, "cpu")
+    want = super_occluded.occluded_reference(tb, em, max_rounds)[1]
+    got = _model_flags(tb, em, max_rounds)
+    assert int((want > 0).sum()) > int((em.bp0 > 0).sum())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", COPLANAR_CASES)
+def test_kernel_model_without_the_conditioning_term_loses_coplanar_lanes(name, monkeypatch):
+    """With ``COND_PAD = 0`` (no second term) the modelled kernel finds
+    lanes unblocked that the twin route blocks (and never the other way
+    round): the coplanar miss the second term repairs."""
+    tb, em, max_rounds = occlusion_case(name, "cpu")
+    want = super_occluded.occluded_reference(tb, em, max_rounds)[1]
+    monkeypatch.setattr(super_occluded, "COND_PAD", 0.0)
+    got = _model_flags(tb, em, max_rounds)
+    assert bool(((want > 0) & ~(got > 0)).any())
+    assert not bool(((got > 0) & ~(want > 0)).any())
+
+
+@pytest.mark.parametrize("name", GRAZE_CASES)
+def test_accepted_points_lie_within_the_written_bound(name):
+    """Every (lane, triangle) pair that the twin's float32 Möller test
+    accepts puts its point o + t d (in float64) within the written bound
+    of its quarter's box: on each axis at most COND_PAD * G * cond / cos
+    outside it, with cond the triangle's |e0| |e1| / |n|, cos its
+    |n . d| / (|n| |d|) and G = A + W + M / 8 of the gate with the lane's
+    own origin for the sub-tile's origin box. On the coplanar rays some
+    accepted points lie outside the box grown by the fixed margin alone
+    (2^-16 of the coordinates)."""
+    tb, em, _ = occlusion_case(name, "cpu")
+    o = em.o.reshape(-1, 3)
+    d = em.d.reshape(-1, 3)
+    rays = torch.cat([o, d, em.tmin.reshape(-1, 1)], dim=-1)
+    upper = em.bt0.reshape(-1)
+    live = rays[:, 6] < upper
+    boxes = tb.qbox.reshape(-1, 6).double()
+    worst, beyond_pad, n_acc = 0.0, 0, 0
+    for q, blk in enumerate(tb.qblocks):
+        cols = blk.t()[:, :, None]  # (TQ, 16, 1): one triangle a block
+        t, pid = super_hits.moller_tile(cols, rays[None].expand(cols.shape[0], -1, -1),
+                                        upper[None].expand(cols.shape[0], -1))
+        acc = (pid >= 0.0) & live[None]  # (TQ, N)
+        if not bool(acc.any()):
+            continue
+        c, lane = acc.nonzero(as_tuple=True)
+        od, dd = o[lane].double(), d[lane].double()
+        p = od + t[c, lane].double()[:, None] * dd
+        lo, hi = boxes[q, :3], boxes[q, 3:]
+        out = torch.maximum(lo - p, p - hi).clamp_min(0.0)  # (n, 3)
+        tri = blk.double()[:, c]  # (16, n)
+        e0, e1, n = tri[3:6], tri[6:9], tri[11:14]
+        cond = e0.norm(dim=0) * e1.norm(dim=0) / n.norm(dim=0)
+        cos = (dd * n.t()).sum(-1).abs() / (n.norm(dim=0) * dd.norm(dim=-1))
+        mag = (lo.abs() + hi.abs()) + 2.0 * od.abs()
+        g = (torch.maximum(hi - od, od - lo).sum(-1) + (hi - lo).sum()
+             + 0.125 * (torch.maximum(lo.abs(), hi.abs()) + od.abs()).sum(-1))
+        bound = super_occluded.COND_PAD * g * cond / cos
+        worst = max(worst, float((out.amax(-1) / bound).max()))
+        beyond_pad += int((out > super_occluded.GATE_PAD * mag).any(-1).sum())
+        n_acc += int(lane.numel())
+    assert n_acc > 1000
+    assert worst <= 1.0
+    if name in COPLANAR_CASES:
+        assert beyond_pad > 0
+
+
+@pytest.mark.parametrize("name", ["mixed K=2 cap 2", "coplanar 2^-20 K=2"])
+def test_open_share_counts_the_swept_pairs(name):
+    """``open_share``: the open gates among the (sub-tile, quarter) pairs
+    the sweep reaches, counted pair by pair; the cap cuts the sweep to one
+    round of KD quarters."""
+    tb, em, max_rounds = occlusion_case(name, "cpu")
+    gates = super_occluded.sweep_gates(tb, em)
+    n_sweep = super_occluded.sweep_length(tb.qblocks.shape[0], em.ids.shape[1], max_rounds)
+    want_open = want_all = 0
+    for u in range(em.n_super):
+        for s in range(16):
+            if bool(em.overflow[u]) and float(em.sb[u, s, 13]) > 0.5:
+                want_all += n_sweep
+                want_open += int(gates[u, s, :n_sweep].sum())
+    assert super_occluded.open_share(tb, em, gates, max_rounds) == (want_open, want_all)
+    assert 0 < want_open < want_all
+    assert (n_sweep < tb.qblocks.shape[0]) == (max_rounds == 2)
+
+
+def test_quarter_normals_bound_every_valid_triangle():
+    """``treelet.quarter_normals`` on a blob's quarters of 8 and 256
+    triangles (the last treelet partly empty): the box holds every valid
+    triangle's unit normal and cond is at least each one's |e0| |e1| / |n|
+    (both within an ulp or two: rounded outward); quarters with no valid
+    triangle get cond 0."""
+    from tracer_torch.accel import treelet
+
+    for n_sub, T in ((24, 32), (64, 1024)):
+        tb, _, _ = occlusion_case(next(k for k, c in OCCLUSION_CASES.items()
+                                       if c[:2] == (n_sub, T)), "cpu")
+        qn = tb.qnorm.reshape(-1, 8)
+        q = tb.qblocks.double()
+        valid = q[:, 10] > 0.5
+        n = q[:, 11:14]
+        nn = n.norm(dim=1)
+        unit = n / nn.clamp_min(1e-300)[:, None]
+        cond = q[:, 3:6].norm(dim=1) * q[:, 6:9].norm(dim=1) / nn.clamp_min(1e-300)
+        lo, hi = qn[:, 0:3, None].double(), qn[:, 3:6, None].double()
+        assert bool(((unit >= lo) & (unit <= hi) | ~valid[:, None]).all())
+        assert bool(((cond <= qn[:, 6, None].double()) | ~valid).all())
+        assert torch.equal(qn[:, 6] > 0, valid.any(dim=1))
+        assert float((hi - lo).max()) <= 2.0 + 1e-6 and bool((qn[:, 7] == 0).all())
+        assert torch.equal(tb.qnorm, treelet.quarter_normals(tb.qblocks))

@@ -13,7 +13,8 @@ triangles through the super-tile hits kernel. Block rows:
 ``build_host`` (cut selection + 8-ary top-tree collapse) is NumPy and
 bit-identical to the JAX package's; ``assemble_blocks`` gathers the block
 table on the device in PyTorch. The flat engine reads the quarter blocks,
-the quarter boxes and the treelet boxes; the packet engine walks the top
+the quarter boxes and the treelet boxes, the any-hit query's sweep gate
+the quarters' normal data too (``quarter_normals``); the packet engine walks the top
 tree and streams whole blocks, and block ``b`` is the four contiguous
 quarters ``qblocks[b*NQ:(b+1)*NQ]``, so ``TreeletBvh`` keeps one table for
 both. The JAX package's matmul-form (MXU) table has no counterpart here.
@@ -38,6 +39,7 @@ ROWS = 16  # feature rows per block
 class TreeletBvh:
     qblocks: torch.Tensor  # (NT*NQ, 16, T/NQ) f32, contiguous quarter blocks
     qbox: torch.Tensor  # (NT, NQ, 6) f32 quarter-block AABBs [lo3, hi3]
+    qnorm: torch.Tensor  # (NT, NQ, 8) f32 ``quarter_normals``: [n_lo3, n_hi3, cond, 0]
     t_lo: torch.Tensor  # (NT, 3) f32 treelet root AABB lo
     t_hi: torch.Tensor  # (NT, 3) f32 treelet root AABB hi
     top: torch.Tensor  # (R, 8, 8) f32 top tree: [lo3, hi3, ref (i32 bits), pad]
@@ -64,12 +66,44 @@ class TreeletHost:
     T: int
 
 
+def quarter_normals(qblocks: torch.Tensor) -> torch.Tensor:
+    """(NQT, 16, TQ) quarter blocks -> (NQT // NQ, NQ, 8) f32 per quarter:
+    [n_lo3, n_hi3, cond, 0], the box of the unit normals n / |n| and the
+    largest |e0| |e1| / |n| (one over the sine of the angle at v0) over
+    the quarter's valid triangles with n != 0, from the stored rows e0, e1
+    and n. Computed in float64 and rounded outward to float32 (one ulp
+    beyond the nearest float), so each is a bound on the exact values of
+    the stored rows. A quarter without such a triangle gets cond 0 and an
+    empty box (lo 1, hi -1). A triangle with n = 0 never hits: its Möller
+    denominator is 0 and its t NaN. The any-hit query's sweep gate reads
+    them (``kernels/super_occluded.sweep_gates``)."""
+    q = qblocks.double()
+    e0, e1, n = q[:, 3:6], q[:, 6:9], q[:, 11:14]  # (NQT, 3, TQ)
+    sq = lambda x: (x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]) + x[:, 2] * x[:, 2]
+    nn = torch.sqrt(sq(n))
+    ok = (q[:, 10] > 0.5) & (nn > 0.0)
+    unit = n / torch.where(ok, nn, 1.0)[:, None]
+    cond = torch.sqrt(sq(e0)) * torch.sqrt(sq(e1)) / torch.where(ok, nn, 1.0)
+    o3 = ok[:, None]
+    f32 = torch.float32
+    inf = torch.tensor(float("inf"), dtype=f32, device=q.device)
+    lo = torch.nextafter(torch.where(o3, unit, 1.0).amin(dim=-1).to(f32), -inf)
+    hi = torch.nextafter(torch.where(o3, unit, -1.0).amax(dim=-1).to(f32), inf)
+    cmax = torch.nextafter(torch.where(ok, cond, 0.0).amax(dim=-1).to(f32), inf)
+    any_ok = ok.any(dim=-1)
+    lo = torch.where(any_ok[:, None], lo, 1.0)
+    hi = torch.where(any_ok[:, None], hi, -1.0)
+    cmax = torch.where(any_ok, cmax, 0.0)
+    out = torch.cat([lo, hi, cmax[:, None], torch.zeros_like(cmax)[:, None]], dim=1)
+    return out.reshape(-1, NQ, 8).contiguous()
+
+
 def assemble_blocks(verts: torch.Tensor, idx: torch.Tensor,
                     pids: torch.Tensor, valid: torch.Tensor):
-    """Gather + edge/normal precompute for the quarter-block table and the
-    quarter-block AABBs on the device. verts (V, 3) f32, idx (N, 3) i32,
-    pids (NT, T) i32, valid (NT, T) bool -> (qblocks (NT*NQ, 16, T/NQ),
-    qbox (NT, NQ, 6))."""
+    """Gather + edge/normal precompute for the quarter-block table, the
+    quarter-block AABBs and the quarters' normal data on the device.
+    verts (V, 3) f32, idx (N, 3) i32, pids (NT, T) i32, valid (NT, T) bool
+    -> (qblocks (NT*NQ, 16, T/NQ), qbox (NT, NQ, 6), qnorm (NT, NQ, 8))."""
     NT, T = pids.shape
     TQ = T // NQ
     tri = idx.long()[pids.long()]  # (NT, T, 3)
@@ -116,7 +150,7 @@ def assemble_blocks(verts: torch.Tensor, idx: torch.Tensor,
     empty = ~valid.reshape(NT, NQ, TQ).any(dim=-1)  # (NT, NQ)
     qlo = torch.where(empty[..., None], 1.0e30, qlo)
     qhi = torch.where(empty[..., None], 1.0e30, qhi)
-    return qblocks, torch.cat([qlo, qhi], dim=-1)
+    return qblocks, torch.cat([qlo, qhi], dim=-1), quarter_normals(qblocks)
 
 
 def from_host(host: TreeletHost, verts: torch.Tensor,
@@ -128,10 +162,11 @@ def from_host(host: TreeletHost, verts: torch.Tensor,
     pids = torch.as_tensor(host.pids, dtype=torch.int32, device=device)
     counts = torch.as_tensor(host.counts, dtype=torch.int32, device=device)
     valid = torch.arange(T, dtype=torch.int32, device=device)[None, :] < counts[:, None]
-    qblocks, qbox = assemble_blocks(verts, idx, pids, valid)
+    qblocks, qbox, qnorm = assemble_blocks(verts, idx, pids, valid)
     return TreeletBvh(
         qblocks=qblocks,
         qbox=qbox,
+        qnorm=qnorm,
         t_lo=torch.as_tensor(host.t_lo, dtype=torch.float32, device=device),
         t_hi=torch.as_tensor(host.t_hi, dtype=torch.float32, device=device),
         top=torch.as_tensor(host.top, dtype=torch.float32, device=device),

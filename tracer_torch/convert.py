@@ -20,7 +20,7 @@ import torch
 
 from tracer_torch.accel import bsp as bsp_mod
 from tracer_torch.accel import traverse
-from tracer_torch.accel.treelet import TreeletBvh
+from tracer_torch.accel.treelet import TreeletBvh, quarter_normals
 from tracer_torch.diff.grad import FLOAT_LEAVES, leaf
 from tracer_torch.geometry.device import (AnalyticTriangles, GeometryBuffers, MaterialTable,
                                          Planes)
@@ -35,10 +35,13 @@ def _t(a, device, dtype=torch.float32):
 
 def treelet_from_arrays(tb, device) -> TreeletBvh:
     """The quarter blocks, quarter boxes, treelet boxes and top tree of a
-    treelet BVH whose leaves are arrays."""
+    treelet BVH whose leaves are arrays, and the quarters' normal data
+    derived from the blocks as the port's builder derives it."""
+    qblocks = _t(tb.qblocks, device)
     return TreeletBvh(
-        qblocks=_t(tb.qblocks, device),
+        qblocks=qblocks,
         qbox=_t(tb.qbox, device),
+        qnorm=quarter_normals(qblocks),
         t_lo=_t(tb.t_lo, device),
         t_hi=_t(tb.t_hi, device),
         top=_t(tb.top, device),
