@@ -32,6 +32,7 @@ from typing import Callable
 
 import torch
 
+from tracer_torch import obs
 from tracer_torch.accel.treelet import NQ, TreeletBvh
 from tracer_torch.kernels import super_hits, super_occluded
 from tracer_torch.kernels.intersect import Rays
@@ -249,77 +250,78 @@ class Emissions:
 def emissions(rays: Rays, tb: TreeletBvh, frame=None, any_hit: bool = False,
               K: int = K_EMIT, seed_t=None) -> Emissions:
     """Cull, order and gate the treelets for one wavefront."""
-    n = rays.o.shape[0]
-    if frame is not None and frame[0] * frame[1] == n:
-        W, H = frame
-        tile = lambda x, fill: to_supers(x, W, H, fill)
-        untile = lambda x: from_supers(x, W, H)
-    else:
-        tile = _linear_supers
-        untile = lambda x: x.reshape(-1)[:n]
+    with obs.span("flat.emissions"):
+        n = rays.o.shape[0]
+        if frame is not None and frame[0] * frame[1] == n:
+            W, H = frame
+            tile = lambda x, fill: to_supers(x, W, H, fill)
+            untile = lambda x: from_supers(x, W, H)
+        else:
+            tile = _linear_supers
+            untile = lambda x: x.reshape(-1)[:n]
 
-    o = tile(rays.o, 1.0e30)
-    d = tile(rays.d, 1.0)
-    tmin = tile(rays.tmin, 1.0)
-    tmax = tile(rays.tmax, 0.0)
-    n_super = o.shape[0]
-    NT = tb.NT
-    K = min(K, NT)
-    dev = o.device
+        o = tile(rays.o, 1.0e30)
+        d = tile(rays.d, 1.0)
+        tmin = tile(rays.tmin, 1.0)
+        tmax = tile(rays.tmax, 0.0)
+        n_super = o.shape[0]
+        NT = tb.NT
+        K = min(K, NT)
+        dev = o.device
 
-    sb = sub_bounds(o, d, tmin, tmax)
-    # Super-tile bound = union of its sub-tiles.
-    alive_sub = sb[:, :, 13] > 0.5
-    live = tmax.reshape(n_super, -1) > tmin.reshape(n_super, -1)
-    super_bounds = (
-        sb[:, :, 0:3].amin(dim=1),
-        sb[:, :, 3:6].amax(dim=1),
-        sb[:, :, 6:9].amin(dim=1),
-        sb[:, :, 9:12].amax(dim=1),
-        torch.where(alive_sub, sb[:, :, 12], _BIG).amin(dim=1),
-        torch.where(live, tmax.reshape(n_super, -1), -_BIG).amax(dim=1),
-        alive_sub.any(dim=1),
-    )
-    ok, near = _frustum_cull(tb, super_bounds)
-    total = ok.sum(dim=1)
-    # Near-first order, ties to the lower treelet id (a stable sort; the
-    # tie order decides which of two equally near blocks is tested first).
-    key = torch.where(ok, -near, -_INF)
-    negnear, ids = torch.sort(key, dim=1, descending=True, stable=True)
-    ids = ids[:, :K]
-    enear = -negnear[:, :K]  # ascending conservative entry distance; INF pad
+        sb = sub_bounds(o, d, tmin, tmax)
+        # Super-tile bound = union of its sub-tiles.
+        alive_sub = sb[:, :, 13] > 0.5
+        live = tmax.reshape(n_super, -1) > tmin.reshape(n_super, -1)
+        super_bounds = (
+            sb[:, :, 0:3].amin(dim=1),
+            sb[:, :, 3:6].amax(dim=1),
+            sb[:, :, 6:9].amin(dim=1),
+            sb[:, :, 9:12].amax(dim=1),
+            torch.where(alive_sub, sb[:, :, 12], _BIG).amin(dim=1),
+            torch.where(live, tmax.reshape(n_super, -1), -_BIG).amax(dim=1),
+            alive_sub.any(dim=1),
+        )
+        ok, near = _frustum_cull(tb, super_bounds)
+        total = ok.sum(dim=1)
+        # Near-first order, ties to the lower treelet id (a stable sort; the
+        # tie order decides which of two equally near blocks is tested first).
+        key = torch.where(ok, -near, -_INF)
+        negnear, ids = torch.sort(key, dim=1, descending=True, stable=True)
+        ids = ids[:, :K]
+        enear = -negnear[:, :K]  # ascending conservative entry distance; INF pad
 
-    prune_sub = torch.where(
-        tmax.reshape(n_super, NSUB, SUB) > tmin.reshape(n_super, NSUB, SUB),
-        tmax.reshape(n_super, NSUB, SUB), -_BIG,
-    ).amax(dim=2)
-    # Temporal t-bound seeding (closest-hit only): each lane's initial best
-    # t is last frame's hit distance plus slack. Gates and emissions keep
-    # the original windows, so the same list serves the repair pass.
-    seeded = None
-    if seed_t is not None and not any_hit:
-        st = tile(seed_t, 0.0)
-        bound = st * SEED_REL + SEED_ABS
-        seeded = (st > 0.0) & (bound < tmax)
-        bt0 = torch.where(seeded, bound, tmax)
-    else:
-        bt0 = tmax
-    bp0 = torch.full((n_super, SUPER), -1.0, dtype=torch.float32, device=dev)
+        prune_sub = torch.where(
+            tmax.reshape(n_super, NSUB, SUB) > tmin.reshape(n_super, NSUB, SUB),
+            tmax.reshape(n_super, NSUB, SUB), -_BIG,
+        ).amax(dim=2)
+        # Temporal t-bound seeding (closest-hit only): each lane's initial best
+        # t is last frame's hit distance plus slack. Gates and emissions keep
+        # the original windows, so the same list serves the repair pass.
+        seeded = None
+        if seed_t is not None and not any_hit:
+            st = tile(seed_t, 0.0)
+            bound = st * SEED_REL + SEED_ABS
+            seeded = (st > 0.0) & (bound < tmax)
+            bt0 = torch.where(seeded, bound, tmax)
+        else:
+            bt0 = tmax
+        bp0 = torch.full((n_super, SUPER), -1.0, dtype=torch.float32, device=dev)
 
-    ok_q, _ = _sub_gates_raw(tb, ids, sb, prune_sub)
-    gm = _gate_words(ok_q)  # (ns, K*NQ)
-    qids = (ids[:, :, None] * NQ
-            + torch.arange(NQ, dtype=ids.dtype, device=dev)).reshape(n_super, K * NQ)
-    # Stream break key: the BLOCK near, replicated per quarter — the stream
-    # is monotone in it.
-    enear = torch.repeat_interleave(enear, NQ, dim=1)
-    en = torch.clamp_max(total, K) * NQ
-    return Emissions(
-        o=o, d=d, tmin=tmin, tmax=tmax, ids=qids.to(torch.int32),
-        enear=enear, en=en.to(torch.int32), gm=gm, bt0=bt0, bp0=bp0,
-        seeded=seeded, overflow=total > K, sb=sb, prune_sub=prune_sub,
-        untile=untile,
-    )
+        ok_q, _ = _sub_gates_raw(tb, ids, sb, prune_sub)
+        gm = _gate_words(ok_q)  # (ns, K*NQ)
+        qids = (ids[:, :, None] * NQ
+                + torch.arange(NQ, dtype=ids.dtype, device=dev)).reshape(n_super, K * NQ)
+        # Stream break key: the BLOCK near, replicated per quarter — the stream
+        # is monotone in it.
+        enear = torch.repeat_interleave(enear, NQ, dim=1)
+        en = torch.clamp_max(total, K) * NQ
+        return Emissions(
+            o=o, d=d, tmin=tmin, tmax=tmax, ids=qids.to(torch.int32),
+            enear=enear, en=en.to(torch.int32), gm=gm, bt0=bt0, bp0=bp0,
+            seeded=seeded, overflow=total > K, sb=sb, prune_sub=prune_sub,
+            untile=untile,
+        )
 
 
 def _run(rays: Rays, tb: TreeletBvh, frame, any_hit: bool, K: int = K_EMIT,
@@ -352,7 +354,7 @@ def _run(rays: Rays, tb: TreeletBvh, frame, any_hit: bool, K: int = K_EMIT,
         # emission list with the full window for exactly those lanes and a
         # dead window for the rest.
         unresolved = (bp < 0.0) & em.seeded
-        if bool(unresolved.any()):
+        if obs.host_read("flat.repair", unresolved.any()):
             btr, bpr = hits(
                 tb, em.ids, em.enear,
                 torch.where(unresolved.any(dim=1), em.en, 0).to(torch.int32),

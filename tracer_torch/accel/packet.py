@@ -28,6 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
+from tracer_torch import obs
 from tracer_torch.accel.treelet import TreeletBvh
 from tracer_torch.kernels import treelet_hits
 from tracer_torch.kernels.intersect import Rays
@@ -129,101 +130,103 @@ def _phase_a_chunk(top, top_ref, D: int, K: int, st: TravState, o, d, tmin, prun
     ``st`` in place and returns this round's emissions (ids (C, K), nears
     (C, K), counts (C,)).
     """
-    C = o.shape[0]
-    R = top.shape[0]
-    dev = o.device
-    inv_d = 1.0 / d
-    eids = torch.zeros((C, K), dtype=torch.int64, device=dev)
-    enear = torch.full((C, K), _INF, dtype=torch.float32, device=dev)
-    en = torch.zeros(C, dtype=torch.int64, device=dev)
-    st.paused = torch.zeros_like(st.paused)
-    kiota = torch.arange(K, device=dev)[None, :]
-    slot8 = torch.arange(8, device=dev)[None, :]
-    rows = torch.arange(C, device=dev)
-    amax = prune.amax(dim=1)  # (C,) loosest per-ray bound, for the ascent
-    o_ = o[:, None, :, :]
-    inv_ = inv_d[:, None, :, :]
-    tmin_ = tmin[:, None, :]
-    prune_ = prune[:, None, :]
+    with obs.span("packet.phase_a"):
+        C = o.shape[0]
+        R = top.shape[0]
+        dev = o.device
+        inv_d = 1.0 / d
+        eids = torch.zeros((C, K), dtype=torch.int64, device=dev)
+        enear = torch.full((C, K), _INF, dtype=torch.float32, device=dev)
+        en = torch.zeros(C, dtype=torch.int64, device=dev)
+        st.paused = torch.zeros_like(st.paused)
+        kiota = torch.arange(K, device=dev)[None, :]
+        slot8 = torch.arange(8, device=dev)[None, :]
+        rows = torch.arange(C, device=dev)
+        amax = prune.amax(dim=1)  # (C,) loosest per-ray bound, for the ascent
+        o_ = o[:, None, :, :]
+        inv_ = inv_d[:, None, :, :]
+        tmin_ = tmin[:, None, :]
+        prune_ = prune[:, None, :]
 
-    def body():
-        nonlocal eids, enear, en
-        active = ~st.done & ~st.paused
-        visit = active & ~st.asc
-        curc = st.cur.clamp(0, R - 1)
-        row = top[curc]  # (C, 8, 8)
-        ref = top_ref[curc]  # (C, 8)
+        def body():
+            nonlocal eids, enear, en
+            active = ~st.done & ~st.paused
+            visit = active & ~st.asc
+            curc = st.cur.clamp(0, R - 1)
+            row = top[curc]  # (C, 8, 8)
+            ref = top_ref[curc]  # (C, 8)
 
-        # 8-wide slab test against every ray of the tile: (C, 8, TILE).
-        t0 = (row[:, :, None, 0:3] - o_) * inv_
-        t1 = (row[:, :, None, 3:6] - o_) * inv_
-        near = torch.minimum(t0, t1).amax(dim=-1)
-        far = torch.maximum(t0, t1).amin(dim=-1)
-        ray_ok = (near <= far) & (far >= tmin_) & (near < prune_)
-        child_hit = ray_ok.any(dim=-1)  # (C, 8)
-        child_near = torch.where(ray_ok, torch.clamp_min(near, 0.0), _INF).amin(dim=-1)
+            # 8-wide slab test against every ray of the tile: (C, 8, TILE).
+            t0 = (row[:, :, None, 0:3] - o_) * inv_
+            t1 = (row[:, :, None, 3:6] - o_) * inv_
+            near = torch.minimum(t0, t1).amax(dim=-1)
+            far = torch.maximum(t0, t1).amin(dim=-1)
+            ray_ok = (near <= far) & (far >= tmin_) & (near < prune_)
+            child_hit = ray_ok.any(dim=-1)  # (C, 8)
+            child_near = torch.where(ray_ok, torch.clamp_min(near, 0.0), _INF).amin(dim=-1)
 
-        hit_v = visit[:, None] & child_hit
-        tre_key = torch.where(hit_v & (ref <= -2), child_near, _INF)
-        ikey = torch.where(hit_v & (ref >= 0), child_near, _INF)
+            hit_v = visit[:, None] & child_hit
+            tre_key = torch.where(hit_v & (ref <= -2), child_near, _INF)
+            ikey = torch.where(hit_v & (ref >= 0), child_near, _INF)
 
-        # Emit treelet children in near order (selection over 8 slots).
-        tids = -2 - ref
-        n_add = torch.zeros_like(en)
-        for _ in range(8):
-            sel = slot8 == tre_key.argmin(dim=1)[:, None]
-            mn = tre_key.amin(dim=1)
-            live = mn < _INF
-            tid = torch.where(sel, tids, 0).sum(dim=1)
-            w = (kiota == (en + n_add)[:, None]) & live[:, None]
-            eids = torch.where(w, tid[:, None], eids)
-            enear = torch.where(w, mn[:, None], enear)
-            n_add = n_add + live.long()
-            tre_key = torch.where(sel, _INF, tre_key)
-        en = en + n_add
+            # Emit treelet children in near order (selection over 8 slots).
+            tids = -2 - ref
+            n_add = torch.zeros_like(en)
+            for _ in range(8):
+                sel = slot8 == tre_key.argmin(dim=1)[:, None]
+                mn = tre_key.amin(dim=1)
+                live = mn < _INF
+                tid = torch.where(sel, tids, 0).sum(dim=1)
+                w = (kiota == (en + n_add)[:, None]) & live[:, None]
+                eids = torch.where(w, tid[:, None], eids)
+                enear = torch.where(w, mn[:, None], enear)
+                n_add = n_add + live.long()
+                tre_key = torch.where(sel, _INF, tre_key)
+            en = en + n_add
 
-        # Descend into the nearest inner child; park its siblings at
-        # stack[level].
-        c_sel = slot8 == ikey.argmin(dim=1)[:, None]
-        has_child = visit & (ikey.amin(dim=1) < _INF)
-        c_ref = torch.where(c_sel, ref, 0).sum(dim=1)
+            # Descend into the nearest inner child; park its siblings at
+            # stack[level].
+            c_sel = slot8 == ikey.argmin(dim=1)[:, None]
+            has_child = visit & (ikey.amin(dim=1) < _INF)
+            c_ref = torch.where(c_sel, ref, 0).sum(dim=1)
 
-        # Ascend: pop the nearest unconsumed sibling at this level, pruned
-        # against the loosest per-ray bound (conservative).
-        lvl = st.level.clamp(0, D - 1)
-        s_near = st.snear[rows, lvl]  # (C, 8)
-        s_ref = st.sref[rows, lvl]
-        a_key = torch.where(s_near < amax[:, None], s_near, _INF)
-        a_sel = slot8 == a_key.argmin(dim=1)[:, None]
-        a_has = st.asc & active & (a_key.amin(dim=1) < _INF)
-        a_ref = torch.where(a_sel, s_ref, 0).sum(dim=1)
+            # Ascend: pop the nearest unconsumed sibling at this level, pruned
+            # against the loosest per-ray bound (conservative).
+            lvl = st.level.clamp(0, D - 1)
+            s_near = st.snear[rows, lvl]  # (C, 8)
+            s_ref = st.sref[rows, lvl]
+            a_key = torch.where(s_near < amax[:, None], s_near, _INF)
+            a_sel = slot8 == a_key.argmin(dim=1)[:, None]
+            a_has = st.asc & active & (a_key.amin(dim=1) < _INF)
+            a_ref = torch.where(a_sel, s_ref, 0).sum(dim=1)
 
-        new_near = torch.where(
-            has_child[:, None],
-            torch.where(c_sel, _INF, ikey),
-            torch.where(a_has[:, None] & a_sel, _INF, s_near),
-        )
-        st.snear[rows, lvl] = new_near
-        st.sref[rows, lvl] = torch.where(has_child[:, None], ref, s_ref)
+            new_near = torch.where(
+                has_child[:, None],
+                torch.where(c_sel, _INF, ikey),
+                torch.where(a_has[:, None] & a_sel, _INF, s_near),
+            )
+            st.snear[rows, lvl] = new_near
+            st.sref[rows, lvl] = torch.where(has_child[:, None], ref, s_ref)
 
-        # Transitions.
-        go_asc = (visit & ~has_child) | (st.asc & active & ~a_has)
-        descend = has_child | a_has
-        st.cur = torch.where(has_child, c_ref, torch.where(a_has, a_ref, st.cur))
-        st.level = torch.where(descend, lvl + 1,
-                               torch.where(go_asc, st.level - 1, st.level))
-        st.asc = torch.where(descend, False, torch.where(go_asc, True, st.asc))
-        st.done = st.done | (go_asc & (st.level < 0))
-        # Pause before visiting a node that might not fit 8 more emissions.
-        st.paused = st.paused | (active & ~st.done & (en > K - 8))
+            # Transitions.
+            go_asc = (visit & ~has_child) | (st.asc & active & ~a_has)
+            descend = has_child | a_has
+            st.cur = torch.where(has_child, c_ref, torch.where(a_has, a_ref, st.cur))
+            st.level = torch.where(descend, lvl + 1,
+                                   torch.where(go_asc, st.level - 1, st.level))
+            st.asc = torch.where(descend, False, torch.where(go_asc, True, st.asc))
+            st.done = st.done | (go_asc & (st.level < 0))
+            # Pause before visiting a node that might not fit 8 more emissions.
+            st.paused = st.paused | (active & ~st.done & (en > K - 8))
 
-    it = 0
-    while it < MAX_IT and bool((~st.done & ~st.paused).any()):
-        n = min(CHECK_EVERY, MAX_IT - it)
-        for _ in range(n):
-            body()
-        it += n
-    return eids, enear, en
+        it = 0
+        while it < MAX_IT and obs.host_read("packet.walk", (~st.done & ~st.paused).any()):
+            n = min(CHECK_EVERY, MAX_IT - it)
+            obs.count("packet.phase_a_iterations", n)
+            for _ in range(n):
+                body()
+            it += n
+        return eids, enear, en
 
 
 # ---------------------------------------------------------------------------
@@ -232,8 +235,9 @@ def _phase_a_chunk(top, top_ref, D: int, K: int, st: TravState, o, d, tmin, prun
 
 
 def _dispatch_hits(tb, eids, enear, en, o, d, tmin, best_t, best_pid, any_hit):
-    return treelet_hits.hits(tb, eids, en, o, d, tmin, best_t, best_pid, any_hit,
-                             enear=enear)
+    with obs.span("packet.phase_b"):
+        return treelet_hits.hits(tb, eids, en, o, d, tmin, best_t, best_pid, any_hit,
+                                 enear=enear)
 
 
 # ---------------------------------------------------------------------------
@@ -297,7 +301,8 @@ def _run(rays: Rays, tb: TreeletBvh, frame, any_hit: bool):
     # emit every treelet, i.e. ceil(NT / K_EMIT) rounds.
     max_rounds = max(MAX_ROUNDS, -(-tb.NT * 2 // K_EMIT) + 8)
     rounds = 1
-    while rounds < max_rounds and any(bool(s.paused.any()) for s in states):
+    while rounds < max_rounds and any(obs.host_read("packet.rounds", s.paused.any())
+                                      for s in states):
         bt, bp = round_body(bt, bp)
         rounds += 1
 

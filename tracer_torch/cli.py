@@ -35,6 +35,8 @@ import time
 
 import torch
 
+from tracer_torch import obs
+
 REFUSED = 2  # exit code of a configuration the port does not serve
 
 
@@ -61,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="WASD move string applied before rendering, one tick per "
                    "char (the reference's orbit/dolly controller, camera.rs:36-112)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the render to DIR/trace.json")
+                   help="write a torch.profiler trace of the render to DIR/trace.json, "
+                        "with the port's layers as tracer_torch:<layer> spans")
     p.add_argument("--interactive", action="store_true",
                    help="REPL mode: re-render on parameter commands (the reference's "
                    "live command loop, lib.rs:365-488)")
@@ -173,18 +176,21 @@ def interactive_loop(scene, cfg, args, dev) -> int:
 
 @contextlib.contextmanager
 def _profiled(out_dir: str, dev: torch.device):
-    """A ``torch.profiler`` trace of the body (host ops, and the card's
-    kernels when rendering on it), written to ``out_dir/trace.json`` even
-    if the body raises."""
+    """A ``torch.profiler`` trace of the body (host ops, the port's layer
+    spans ``tracer_torch:<layer>``, and the card's kernels when rendering
+    on it), written to ``out_dir/trace.json`` even if the body raises."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     os.makedirs(out_dir, exist_ok=True)
     prof = profile(activities=acts)
+    was = obs.SPANS
+    obs.enabled(True)
     try:
         with prof:
             yield
     finally:
+        obs.enabled(was)
         prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
 
 

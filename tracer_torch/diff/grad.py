@@ -22,6 +22,7 @@ from dataclasses import replace
 
 import torch
 
+from tracer_torch import obs
 from tracer_torch.geometry.device import AnalyticTriangles, GeometryBuffers, MaterialTable, Planes
 from tracer_torch.render import integrator
 from tracer_torch.render.camera import Camera
@@ -134,10 +135,12 @@ def _leaf_grads(scene: Scene, loss_fn) -> dict:
     leaves = {k: leaf(scene, k).detach().requires_grad_(k != "geom.tri_table") for k in keys}
     wrt = [k for k in keys if leaves[k].requires_grad]
     with torch.enable_grad():
-        loss = loss_fn(with_leaves(scene, leaves))
+        with obs.span("grad.forward"):
+            loss = loss_fn(with_leaves(scene, leaves))
         # A frame of background alone (W1 E1-E3) reaches no leaf.
-        grads = torch.autograd.grad(loss, [leaves[k] for k in wrt], allow_unused=True) \
-            if loss.requires_grad else [None] * len(wrt)
+        with obs.span("grad.backward"):
+            grads = torch.autograd.grad(loss, [leaves[k] for k in wrt], allow_unused=True) \
+                if loss.requires_grad else [None] * len(wrt)
     out = {k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(wrt, grads)}
     if "geom.tri_table" in leaves:
         out["geom.tri_table"] = torch.zeros_like(leaves["geom.tri_table"])

@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from tracer_torch import obs
 from tracer_torch._build import CSRC, nvcc_command, shared_library
 
 SUB = 128  # rays per sub-tile (8x16 pixels)
@@ -269,20 +270,21 @@ def sweep(hits, tb, kd: int, overflow, o, d, tmin, best_t, best_pid,
     once every block is swept or at round ``max_rounds``. Returns the
     updated (best_t, best_pid) and the per-super-tile converged flag: not
     overflowing, or swept to the end before the cap."""
-    n_super = o.shape[0]
-    nd = tb.qblocks.shape[0]
-    rounds = 1
-    if bool(overflow.any()):
-        dev = o.device
-        iota = torch.arange(kd, dtype=torch.int32, device=dev).expand(n_super, kd)
-        zeros = torch.zeros((n_super, kd), dtype=torch.float32, device=dev)
-        full_mask = torch.full((n_super, kd), (1 << NSUB) - 1,
-                               dtype=torch.int32, device=dev)
-        while (rounds - 1) * kd < nd and rounds < max_rounds:
-            base = (rounds - 1) * kd
-            ids_r = torch.clamp_max(iota + base, nd - 1)
-            en_r = torch.where(overflow, min(max(nd - base, 0), kd), 0)
-            best_t, best_pid = hits(tb, ids_r, zeros, en_r.to(torch.int32), full_mask,
-                                    o, d, tmin, best_t, best_pid, any_hit)
-            rounds += 1
-    return best_t, best_pid, ~overflow | ((rounds - 1) * kd >= nd)
+    with obs.span("super_hits.sweep"):
+        n_super = o.shape[0]
+        nd = tb.qblocks.shape[0]
+        rounds = 1
+        if obs.host_read("super_hits.overflow", overflow.any()):
+            dev = o.device
+            iota = torch.arange(kd, dtype=torch.int32, device=dev).expand(n_super, kd)
+            zeros = torch.zeros((n_super, kd), dtype=torch.float32, device=dev)
+            full_mask = torch.full((n_super, kd), (1 << NSUB) - 1,
+                                   dtype=torch.int32, device=dev)
+            while (rounds - 1) * kd < nd and rounds < max_rounds:
+                base = (rounds - 1) * kd
+                ids_r = torch.clamp_max(iota + base, nd - 1)
+                en_r = torch.where(overflow, min(max(nd - base, 0), kd), 0)
+                best_t, best_pid = hits(tb, ids_r, zeros, en_r.to(torch.int32), full_mask,
+                                        o, d, tmin, best_t, best_pid, any_hit)
+                rounds += 1
+        return best_t, best_pid, ~overflow | ((rounds - 1) * kd >= nd)

@@ -31,6 +31,7 @@ import functools
 
 import torch
 
+from tracer_torch import obs
 from tracer_torch._build import CSRC, nvcc_command, shared_library
 from tracer_torch.kernels import super_hits
 from tracer_torch.kernels.super_hits import NSUB, SUPER
@@ -255,61 +256,62 @@ def occluded(tb, em, max_rounds: int, counts: torch.Tensor | None = None):
     converged), all as ``occluded_reference``'s. ``counts``, an optional
     (3,) int64 tensor on the card, receives the kernel's own work (added):
     work items run, (sub-tile, quarter) tests, Möller tests of live lanes."""
-    if em.o.device.type == "cpu":
-        return occluded_reference(tb, em, max_rounds)
-    if em.o.device.type != "cuda":
-        raise RuntimeError(f"super_occluded: unsupported device {em.o.device}")
-    global KERNEL_LAUNCHES
-    n_super, kd = em.ids.shape
-    qblocks = tb.qblocks
-    ntq, rows, tq = qblocks.shape
-    if rows != 16 or tq % 4 != 0 or qblocks.dtype != torch.float32:
-        raise ValueError(f"super_occluded: bad qblocks {tuple(qblocks.shape)} {qblocks.dtype}")
-    if tb.qbox.numel() != ntq * 6 or tb.qbox.dtype != torch.float32:
-        raise ValueError(f"super_occluded: bad qbox {tuple(tb.qbox.shape)}")
-    if tb.qnorm.numel() != ntq * 8 or tb.qnorm.dtype != torch.float32:
-        raise ValueError(f"super_occluded: bad qnorm {tuple(tb.qnorm.shape)}")
-    if em.o.shape != (n_super, SUPER, 3) or em.sb.shape != (n_super, NSUB, 16):
-        raise ValueError(f"super_occluded: bad ray shape {tuple(em.o.shape)}")
-    for name, x in (("qblocks", qblocks), ("qbox", tb.qbox), ("qnorm", tb.qnorm),
-                    ("ids", em.ids), ("gm", em.gm), ("bp0", em.bp0)):
-        if x.device != em.o.device:
-            raise ValueError(f"super_occluded: {name} on {x.device}, rays on {em.o.device}")
-    if counts is not None and (counts.dtype != torch.int64 or counts.shape != (3,)
-                               or counts.device != em.o.device):
-        raise ValueError("super_occluded: counts must be a (3,) int64 tensor on the card")
-    f32, i32 = torch.float32, torch.int32
-    n_sweep = sweep_length(ntq, kd, max_rounds)
-    rays = torch.cat([em.o, em.d, em.tmin[..., None], em.bt0[..., None]],
-                     dim=-1).to(f32).contiguous()  # (n_super, SUPER, 8)
-    sbp = _packed_bounds(em)
-    flags = em.bp0.to(f32).clone().contiguous()  # the kernel sets 1.0 in place
-    ids = em.ids.to(i32).contiguous()
-    en = em.en.to(i32).contiguous()
-    enear = em.enear.to(f32).contiguous()
-    gm = em.gm.to(i32).contiguous()
-    qb = qblocks.contiguous()
-    qbox = tb.qbox.contiguous()
-    qnorm = tb.qnorm.contiguous()
-    if qb.data_ptr() % 16:
-        raise ValueError("super_occluded: qblocks must be 16-byte aligned")
-    order, key, ncl, nch = work_items(em, n_sweep)
-    ticket = torch.zeros(1, dtype=i32, device=em.o.device)
-    lib, _ = build()
-    with torch.cuda.device(em.o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.super_occluded_launch(
-            ids.data_ptr(), en.data_ptr(), enear.data_ptr(), gm.data_ptr(),
-            qb.data_ptr(), qbox.data_ptr(), qnorm.data_ptr(), sbp.data_ptr(),
-            rays.data_ptr(),
-            order.data_ptr(), key.data_ptr(), ticket.data_ptr(), flags.data_ptr(),
-            counts.data_ptr() if counts is not None else None,
-            order.shape[0], kd, ntq, tq, ncl, nch, n_sweep, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"super_occluded: kernel launch failed (cudaError {err})")
-    KERNEL_LAUNCHES += 1
-    return em.bt0, flags, converged(tb, em, max_rounds)
+    with obs.span("super_occluded.occluded"):
+        if em.o.device.type == "cpu":
+            return occluded_reference(tb, em, max_rounds)
+        if em.o.device.type != "cuda":
+            raise RuntimeError(f"super_occluded: unsupported device {em.o.device}")
+        global KERNEL_LAUNCHES
+        n_super, kd = em.ids.shape
+        qblocks = tb.qblocks
+        ntq, rows, tq = qblocks.shape
+        if rows != 16 or tq % 4 != 0 or qblocks.dtype != torch.float32:
+            raise ValueError(f"super_occluded: bad qblocks {tuple(qblocks.shape)} {qblocks.dtype}")
+        if tb.qbox.numel() != ntq * 6 or tb.qbox.dtype != torch.float32:
+            raise ValueError(f"super_occluded: bad qbox {tuple(tb.qbox.shape)}")
+        if tb.qnorm.numel() != ntq * 8 or tb.qnorm.dtype != torch.float32:
+            raise ValueError(f"super_occluded: bad qnorm {tuple(tb.qnorm.shape)}")
+        if em.o.shape != (n_super, SUPER, 3) or em.sb.shape != (n_super, NSUB, 16):
+            raise ValueError(f"super_occluded: bad ray shape {tuple(em.o.shape)}")
+        for name, x in (("qblocks", qblocks), ("qbox", tb.qbox), ("qnorm", tb.qnorm),
+                        ("ids", em.ids), ("gm", em.gm), ("bp0", em.bp0)):
+            if x.device != em.o.device:
+                raise ValueError(f"super_occluded: {name} on {x.device}, rays on {em.o.device}")
+        if counts is not None and (counts.dtype != torch.int64 or counts.shape != (3,)
+                                   or counts.device != em.o.device):
+            raise ValueError("super_occluded: counts must be a (3,) int64 tensor on the card")
+        f32, i32 = torch.float32, torch.int32
+        n_sweep = sweep_length(ntq, kd, max_rounds)
+        rays = torch.cat([em.o, em.d, em.tmin[..., None], em.bt0[..., None]],
+                         dim=-1).to(f32).contiguous()  # (n_super, SUPER, 8)
+        sbp = _packed_bounds(em)
+        flags = em.bp0.to(f32).clone().contiguous()  # the kernel sets 1.0 in place
+        ids = em.ids.to(i32).contiguous()
+        en = em.en.to(i32).contiguous()
+        enear = em.enear.to(f32).contiguous()
+        gm = em.gm.to(i32).contiguous()
+        qb = qblocks.contiguous()
+        qbox = tb.qbox.contiguous()
+        qnorm = tb.qnorm.contiguous()
+        if qb.data_ptr() % 16:
+            raise ValueError("super_occluded: qblocks must be 16-byte aligned")
+        order, key, ncl, nch = work_items(em, n_sweep)
+        ticket = torch.zeros(1, dtype=i32, device=em.o.device)
+        lib, _ = build()
+        with torch.cuda.device(em.o.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.super_occluded_launch(
+                ids.data_ptr(), en.data_ptr(), enear.data_ptr(), gm.data_ptr(),
+                qb.data_ptr(), qbox.data_ptr(), qnorm.data_ptr(), sbp.data_ptr(),
+                rays.data_ptr(),
+                order.data_ptr(), key.data_ptr(), ticket.data_ptr(), flags.data_ptr(),
+                counts.data_ptr() if counts is not None else None,
+                order.shape[0], kd, ntq, tq, ncl, nch, n_sweep, stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"super_occluded: kernel launch failed (cudaError {err})")
+        KERNEL_LAUNCHES += 1
+        return em.bt0, flags, converged(tb, em, max_rounds)
 
 
 def occluded_reference(tb, em, max_rounds: int, hits=None, stats: dict | None = None):

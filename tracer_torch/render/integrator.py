@@ -56,6 +56,7 @@ from dataclasses import dataclass, fields, replace
 
 import torch
 
+from tracer_torch import obs
 from tracer_torch.accel import bsp as bsp_mod
 from tracer_torch.accel import flat, packet, traverse, wide
 from tracer_torch.geometry.device import (
@@ -213,177 +214,178 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
     engine; exact whatever its quality (see
     ``tracer_torch.accel.flat.closest_hit``).
     """
-    n = rays.o.shape[0]
-    dev = rays.o.device
-    f32 = torch.float32
-    z3 = torch.zeros((n, 3), dtype=f32, device=dev)
-    yes = torch.ones(n, dtype=torch.bool, device=dev)
-    no = torch.zeros(n, dtype=torch.bool, device=dev)
-    best = Hit(
-        valid=no,
-        t=rays.tmax,
-        position=z3,
-        normal=z3,
-        shader=torch.full((n,), 255, dtype=torch.int32, device=dev),
-        albedo=z3,
-        emission=z3,
-        specular=torch.zeros(n, dtype=f32, device=dev),
-        shininess=torch.zeros(n, dtype=f32, device=dev),
-        ior=torch.full((n,), cfg.sphere_ior_default, dtype=f32, device=dev),
-        extinction=z3,
-        uv=torch.zeros((n, 2), dtype=f32, device=dev),
-        textured=no,
-        is_mesh=no,
-        converged=yes,
-    )
-
-    spheres = scene.spheres
-    for i in range(0 if spheres is None else spheres.radius.shape[0]):
-        c = spheres.center[i]
-        t, ok = intersect.sphere_t(Rays(rays.o, rays.d, rays.tmin, best.t), c,
-                                   spheres.radius[i])
-        pos = rays.o + t[:, None] * rays.d
-        shader = _resolve_shader(int(spheres.shader[i]), scene.uniforms)
-        best = _update(
-            best, ok,
-            valid=yes,
-            t=t,
-            position=pos,
-            normal=vec.normalize(pos - c, eps=1e-24),
-            shader=torch.full((n,), shader, dtype=torch.int32, device=dev),
-            albedo=spheres.base_color[i].expand(n, 3),
+    with obs.span("integrator.trace_closest"):
+        n = rays.o.shape[0]
+        dev = rays.o.device
+        f32 = torch.float32
+        z3 = torch.zeros((n, 3), dtype=f32, device=dev)
+        yes = torch.ones(n, dtype=torch.bool, device=dev)
+        no = torch.zeros(n, dtype=torch.bool, device=dev)
+        best = Hit(
+            valid=no,
+            t=rays.tmax,
+            position=z3,
+            normal=z3,
+            shader=torch.full((n,), 255, dtype=torch.int32, device=dev),
+            albedo=z3,
             emission=z3,
-            ior=spheres.ior[i].expand(n),
-            extinction=spheres.extinction[i].expand(n, 3),
-            is_mesh=no,
+            specular=torch.zeros(n, dtype=f32, device=dev),
+            shininess=torch.zeros(n, dtype=f32, device=dev),
+            ior=torch.full((n,), cfg.sphere_ior_default, dtype=f32, device=dev),
+            extinction=z3,
+            uv=torch.zeros((n, 2), dtype=f32, device=dev),
             textured=no,
-        )
-
-    planes = scene.planes
-    for i in range(0 if planes is None else planes.normal.shape[0]):
-        p0 = planes.position[i]
-        nrm0 = planes.normal[i]
-        t, ok = intersect.plane_t(Rays(rays.o, rays.d, rays.tmin, best.t), p0, nrm0)
-        pos = rays.o + t[:, None] * rays.d
-        u = vec.dot(pos - p0, planes.tangent[i])
-        v = vec.dot(pos - p0, planes.binormal[i])
-        shader = _resolve_shader(int(planes.shader[i]), scene.uniforms)
-        best = _update(
-            best, ok,
-            valid=yes,
-            t=t,
-            position=pos,
-            normal=nrm0.expand(n, 3),
-            shader=torch.full((n,), shader, dtype=torch.int32, device=dev),
-            albedo=planes.base_color[i].expand(n, 3),
-            emission=z3,
-            uv=torch.stack([vec.abs(u), vec.abs(v)], dim=-1),
-            textured=(planes.textured[i] != 0).expand(n),
             is_mesh=no,
+            converged=yes,
         )
 
-    tris = scene.tris
-    for i in range(0 if tris is None else tris.shader.shape[0]):
-        v0, v1, v2 = tris.verts[i, 0], tris.verts[i, 1], tris.verts[i, 2]
-        t, _, _, ok = intersect.triangle_t(Rays(rays.o, rays.d, rays.tmin, best.t),
-                                           v0, v1, v2, eps_denom=TRI_EPS_DENOM)
-        shader = _resolve_shader(int(tris.shader[i]), scene.uniforms)
-        best = _update(
-            best, ok,
-            valid=yes,
-            t=t,
-            position=rays.o + t[:, None] * rays.d,
-            normal=vec.normalize(vec.cross(v1 - v0, v2 - v0), eps=1e-24).expand(n, 3),
-            shader=torch.full((n,), shader, dtype=torch.int32, device=dev),
-            albedo=tris.base_color[i].expand(n, 3),
-            emission=z3,
-            is_mesh=no,
-            textured=no,
-        )
-
-    geom = scene.geom
-    if geom is None:
-        return best
-    trav = _effective_traversal(scene, cfg)
-    # The traversal carries no gradient: its inputs are detached and it
-    # returns integer ids (the accel buffers hold no grads either).
-    with torch.no_grad():
-        sub = Rays(rays.o.detach(), rays.d.detach(), rays.tmin.detach(),
-                   best.t.detach())
-        if trav == "brute":
-            # Engines without caps always converge.
-            _, tri = intersect.mesh_brute_force(sub, geom.vertices, geom.indices)
-            conv = yes
-        elif trav == "bsp":
-            _, tri, conv = bsp_mod.bsp_closest_hit(sub, scene.bsp, geom.vertices, geom.indices,
-                                                   with_conv=True)
-        elif trav == "bvh2":
-            # The JAX package flags no truncation of this walk.
-            _, tri = traverse.bvh_closest_hit(sub, scene.bvh, geom.vertices, geom.indices,
-                                              max_leaf=cfg.max_leaf)
-            conv = yes
-        elif trav == "bvh8":
-            _, tri, conv = wide.closest_hit(sub, scene.wide, with_conv=True)
-        elif trav != "bvh":
-            raise NotImplementedError(f"traversal {trav!r} is not ported")
-        elif cfg.mode == "direct":
-            _, tri, conv = flat.closest_hit(
-                sub, scene.tb, frame=_frame(scene, cfg), with_conv=True,
-                seed_t=None if seed_t is None else seed_t.detach(),
+        spheres = scene.spheres
+        for i in range(0 if spheres is None else spheres.radius.shape[0]):
+            c = spheres.center[i]
+            t, ok = intersect.sphere_t(Rays(rays.o, rays.d, rays.tmin, best.t), c,
+                                       spheres.radius[i])
+            pos = rays.o + t[:, None] * rays.d
+            shader = _resolve_shader(int(spheres.shader[i]), scene.uniforms)
+            best = _update(
+                best, ok,
+                valid=yes,
+                t=t,
+                position=pos,
+                normal=vec.normalize(pos - c, eps=1e-24),
+                shader=torch.full((n,), shader, dtype=torch.int32, device=dev),
+                albedo=spheres.base_color[i].expand(n, 3),
+                emission=z3,
+                ior=spheres.ior[i].expand(n),
+                extinction=spheres.extinction[i].expand(n, 3),
+                is_mesh=no,
+                textured=no,
             )
+
+        planes = scene.planes
+        for i in range(0 if planes is None else planes.normal.shape[0]):
+            p0 = planes.position[i]
+            nrm0 = planes.normal[i]
+            t, ok = intersect.plane_t(Rays(rays.o, rays.d, rays.tmin, best.t), p0, nrm0)
+            pos = rays.o + t[:, None] * rays.d
+            u = vec.dot(pos - p0, planes.tangent[i])
+            v = vec.dot(pos - p0, planes.binormal[i])
+            shader = _resolve_shader(int(planes.shader[i]), scene.uniforms)
+            best = _update(
+                best, ok,
+                valid=yes,
+                t=t,
+                position=pos,
+                normal=nrm0.expand(n, 3),
+                shader=torch.full((n,), shader, dtype=torch.int32, device=dev),
+                albedo=planes.base_color[i].expand(n, 3),
+                emission=z3,
+                uv=torch.stack([vec.abs(u), vec.abs(v)], dim=-1),
+                textured=(planes.textured[i] != 0).expand(n),
+                is_mesh=no,
+            )
+
+        tris = scene.tris
+        for i in range(0 if tris is None else tris.shader.shape[0]):
+            v0, v1, v2 = tris.verts[i, 0], tris.verts[i, 1], tris.verts[i, 2]
+            t, _, _, ok = intersect.triangle_t(Rays(rays.o, rays.d, rays.tmin, best.t),
+                                               v0, v1, v2, eps_denom=TRI_EPS_DENOM)
+            shader = _resolve_shader(int(tris.shader[i]), scene.uniforms)
+            best = _update(
+                best, ok,
+                valid=yes,
+                t=t,
+                position=rays.o + t[:, None] * rays.d,
+                normal=vec.normalize(vec.cross(v1 - v0, v2 - v0), eps=1e-24).expand(n, 3),
+                shader=torch.full((n,), shader, dtype=torch.int32, device=dev),
+                albedo=tris.base_color[i].expand(n, 3),
+                emission=z3,
+                is_mesh=no,
+                textured=no,
+            )
+
+        geom = scene.geom
+        if geom is None:
+            return best
+        trav = _effective_traversal(scene, cfg)
+        # The traversal carries no gradient: its inputs are detached and it
+        # returns integer ids (the accel buffers hold no grads either).
+        with torch.no_grad():
+            sub = Rays(rays.o.detach(), rays.d.detach(), rays.tmin.detach(),
+                       best.t.detach())
+            if trav == "brute":
+                # Engines without caps always converge.
+                _, tri = intersect.mesh_brute_force(sub, geom.vertices, geom.indices)
+                conv = yes
+            elif trav == "bsp":
+                _, tri, conv = bsp_mod.bsp_closest_hit(sub, scene.bsp, geom.vertices, geom.indices,
+                                                       with_conv=True)
+            elif trav == "bvh2":
+                # The JAX package flags no truncation of this walk.
+                _, tri = traverse.bvh_closest_hit(sub, scene.bvh, geom.vertices, geom.indices,
+                                                  max_leaf=cfg.max_leaf)
+                conv = yes
+            elif trav == "bvh8":
+                _, tri, conv = wide.closest_hit(sub, scene.wide, with_conv=True)
+            elif trav != "bvh":
+                raise NotImplementedError(f"traversal {trav!r} is not ported")
+            elif cfg.mode == "direct":
+                _, tri, conv = flat.closest_hit(
+                    sub, scene.tb, frame=_frame(scene, cfg), with_conv=True,
+                    seed_t=None if seed_t is None else seed_t.detach(),
+                )
+            else:
+                _, tri, conv = packet.closest_hit(
+                    sub, scene.tb, frame=_frame(scene, cfg), with_conv=True)
+        ok = tri >= 0
+        T = geom.indices.shape[0]
+        tri_c = tri.long().clamp(0, T - 1)
+        if T <= ONE_HOT_MAX_TRIANGLES:
+            row = _one_hot(tri_c, _small_mesh_table(geom))
         else:
-            _, tri, conv = packet.closest_hit(
-                sub, scene.tb, frame=_frame(scene, cfg), with_conv=True)
-    ok = tri >= 0
-    T = geom.indices.shape[0]
-    tri_c = tri.long().clamp(0, T - 1)
-    if T <= ONE_HOT_MAX_TRIANGLES:
-        row = _one_hot(tri_c, _small_mesh_table(geom))
-    else:
-        row = fetch_tri_rows(geom.vertices, geom.normals, geom.tri_table,
-                             geom.indices, tri_c)
-    v0, v1, v2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
-    n0, n1, n2 = row[:, 9:12], row[:, 12:15], row[:, 15:18]
-    mat = row[:, 18].detach().long()
-    # Re-derivation of t/beta/gamma from the winning id.
-    t_d, beta, gamma, _ = intersect.triangle_t(
-        Rays(rays.o, rays.d, torch.zeros_like(rays.tmin), rays.tmax),
-        v0, v1, v2,
-    )
-    pos = rays.o + t_d[:, None] * rays.d
-    face_n = vec.cross(v1 - v0, v2 - v0)
-    if cfg.use_vertex_normals:
-        sn = (
-            n0 * (1.0 - beta - gamma)[:, None]
-            + n1 * beta[:, None]
-            + n2 * gamma[:, None]
+            row = fetch_tri_rows(geom.vertices, geom.normals, geom.tri_table,
+                                 geom.indices, tri_c)
+        v0, v1, v2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
+        n0, n1, n2 = row[:, 9:12], row[:, 12:15], row[:, 15:18]
+        mat = row[:, 18].detach().long()
+        # Re-derivation of t/beta/gamma from the winning id.
+        t_d, beta, gamma, _ = intersect.triangle_t(
+            Rays(rays.o, rays.d, torch.zeros_like(rays.tmin), rays.tmax),
+            v0, v1, v2,
         )
-        # Fall back to the face normal where vertex normals are zero.
-        sn = vec.where(vec.dot(sn, sn) > 1e-20, sn, face_n)
-    else:
-        sn = face_n
-    nrm = vec.normalize(sn, eps=1e-24)
-    shader = torch.full(
-        (n,), _resolve_shader(cfg.mesh_shader, scene.uniforms),
-        dtype=torch.int32, device=dev,
-    )
-    mrow = _material_rows(scene.materials, mat)
-    best = _update(
-        best, ok,
-        valid=yes,
-        t=t_d,
-        position=pos,
-        normal=nrm,
-        shader=shader,
-        albedo=mrow[:, 0:3],
-        emission=mrow[:, 3:6],
-        specular=vec.mean3(mrow[:, 6:9]),
-        shininess=mrow[:, 9],
-        ior=mrow[:, 10],
-        is_mesh=yes,
-        textured=no,
-    )
-    return replace(best, converged=best.converged & conv)
+        pos = rays.o + t_d[:, None] * rays.d
+        face_n = vec.cross(v1 - v0, v2 - v0)
+        if cfg.use_vertex_normals:
+            sn = (
+                n0 * (1.0 - beta - gamma)[:, None]
+                + n1 * beta[:, None]
+                + n2 * gamma[:, None]
+            )
+            # Fall back to the face normal where vertex normals are zero.
+            sn = vec.where(vec.dot(sn, sn) > 1e-20, sn, face_n)
+        else:
+            sn = face_n
+        nrm = vec.normalize(sn, eps=1e-24)
+        shader = torch.full(
+            (n,), _resolve_shader(cfg.mesh_shader, scene.uniforms),
+            dtype=torch.int32, device=dev,
+        )
+        mrow = _material_rows(scene.materials, mat)
+        best = _update(
+            best, ok,
+            valid=yes,
+            t=t_d,
+            position=pos,
+            normal=nrm,
+            shader=shader,
+            albedo=mrow[:, 0:3],
+            emission=mrow[:, 3:6],
+            specular=vec.mean3(mrow[:, 6:9]),
+            shininess=mrow[:, 9],
+            ior=mrow[:, 10],
+            is_mesh=yes,
+            textured=no,
+        )
+        return replace(best, converged=best.converged & conv)
 
 
 def _mesh_only_anyhit(scene: Scene, cfg: SceneConfig, rays: Rays):
@@ -426,20 +428,21 @@ def trace_occluded(scene: Scene, cfg: SceneConfig, rays: Rays):
     shadow test reuses the closest-hit ``intersect_scene``
     (``w8e3.wgsl:469-471``) and reads only whether it hit. Returns
     (blocked, converged)."""
-    blocked = torch.zeros(rays.o.shape[0], dtype=torch.bool, device=rays.o.device)
-    spheres, planes, tris = scene.spheres, scene.planes, scene.tris
-    for i in range(0 if spheres is None else spheres.radius.shape[0]):
-        _, ok = intersect.sphere_t(rays, spheres.center[i], spheres.radius[i])
-        blocked = blocked | ok
-    for i in range(0 if planes is None else planes.normal.shape[0]):
-        _, ok = intersect.plane_t(rays, planes.position[i], planes.normal[i])
-        blocked = blocked | ok
-    for i in range(0 if tris is None else tris.shader.shape[0]):
-        _, _, _, ok = intersect.triangle_t(rays, tris.verts[i, 0], tris.verts[i, 1],
-                                           tris.verts[i, 2], eps_denom=TRI_EPS_DENOM)
-        blocked = blocked | ok
-    b, conv = _mesh_only_anyhit(scene, cfg, rays)
-    return blocked | b, conv
+    with obs.span("integrator.trace_occluded"):
+        blocked = torch.zeros(rays.o.shape[0], dtype=torch.bool, device=rays.o.device)
+        spheres, planes, tris = scene.spheres, scene.planes, scene.tris
+        for i in range(0 if spheres is None else spheres.radius.shape[0]):
+            _, ok = intersect.sphere_t(rays, spheres.center[i], spheres.radius[i])
+            blocked = blocked | ok
+        for i in range(0 if planes is None else planes.normal.shape[0]):
+            _, ok = intersect.plane_t(rays, planes.position[i], planes.normal[i])
+            blocked = blocked | ok
+        for i in range(0 if tris is None else tris.shader.shape[0]):
+            _, _, _, ok = intersect.triangle_t(rays, tris.verts[i, 0], tris.verts[i, 1],
+                                               tris.verts[i, 2], eps_denom=TRI_EPS_DENOM)
+            blocked = blocked | ok
+        b, conv = _mesh_only_anyhit(scene, cfg, rays)
+        return blocked | b, conv
 
 
 def _sample_point_light_w1(pos, cfg: SceneConfig):
@@ -832,76 +835,77 @@ def shade(scene, cfg, rays, hit, factor, emit, state):
     path mode. ``state`` may be None where no arm draws (direct mode
     without the holdout). Returns (color, new_rays, cont, factor', emit',
     state', converged)."""
-    n_lanes = hit.t.shape[0]
-    dev = hit.t.device
-    path = cfg.mode == "path"
-    possible = set(cfg.possible_shaders)
-    sid = hit.shader
-    yes = torch.ones(n_lanes, dtype=torch.bool, device=dev)
-    out = dict(
-        color=torch.tensor(ERROR_COLOR, dtype=torch.float32, device=dev).expand(n_lanes, 3),
-        rays=rays, cont=~yes, factor=factor, emit=emit, state=state, conv=yes,
-    )
+    with obs.span("integrator.shade"):
+        n_lanes = hit.t.shape[0]
+        dev = hit.t.device
+        path = cfg.mode == "path"
+        possible = set(cfg.possible_shaders)
+        sid = hit.shader
+        yes = torch.ones(n_lanes, dtype=torch.bool, device=dev)
+        out = dict(
+            color=torch.tensor(ERROR_COLOR, dtype=torch.float32, device=dev).expand(n_lanes, 3),
+            rays=rays, cont=~yes, factor=factor, emit=emit, state=state, conv=yes,
+        )
 
-    def merge(mask, c, nr=None, ct=None, f=None, e=None, s=None, cv=None):
-        """The lanes of ``mask`` take this arm's results. A result that is
-        None, or the input passed through, is not merged: the masks are
-        disjoint, so those lanes still hold the input."""
-        out["color"] = vec.where(mask, c, out["color"])
-        if nr is not None and nr is not rays:
-            r = out["rays"]
-            out["rays"] = Rays(
-                o=vec.where(mask, nr.o, r.o),
-                d=vec.where(mask, nr.d, r.d),
-                tmin=torch.where(mask, nr.tmin, r.tmin),
-                tmax=torch.where(mask, nr.tmax, r.tmax),
-            )
-        if ct is not None:
-            out["cont"] = torch.where(mask, ct, out["cont"])
-        if f is not None and f is not factor:
-            out["factor"] = vec.where(mask, f, out["factor"])
-        if e is not None and e is not emit:
-            out["emit"] = torch.where(mask, e, out["emit"])
-        if s is not None and s is not state:
-            out["state"] = torch.where(mask, s, out["state"])
-        if cv is not None:
-            out["conv"] = out["conv"] & (~mask | cv)
+        def merge(mask, c, nr=None, ct=None, f=None, e=None, s=None, cv=None):
+            """The lanes of ``mask`` take this arm's results. A result that is
+            None, or the input passed through, is not merged: the masks are
+            disjoint, so those lanes still hold the input."""
+            out["color"] = vec.where(mask, c, out["color"])
+            if nr is not None and nr is not rays:
+                r = out["rays"]
+                out["rays"] = Rays(
+                    o=vec.where(mask, nr.o, r.o),
+                    d=vec.where(mask, nr.d, r.d),
+                    tmin=torch.where(mask, nr.tmin, r.tmin),
+                    tmax=torch.where(mask, nr.tmax, r.tmax),
+                )
+            if ct is not None:
+                out["cont"] = torch.where(mask, ct, out["cont"])
+            if f is not None and f is not factor:
+                out["factor"] = vec.where(mask, f, out["factor"])
+            if e is not None and e is not emit:
+                out["emit"] = torch.where(mask, e, out["emit"])
+            if s is not None and s is not state:
+                out["state"] = torch.where(mask, s, out["state"])
+            if cv is not None:
+                out["conv"] = out["conv"] & (~mask | cv)
 
-    albedo = _plane_albedo(scene, cfg, hit)
-    if SHADER_LAMBERTIAN in possible:
-        m = sid == SHADER_LAMBERTIAN
-        if path:
-            merge(m, *_shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state))
-        else:
-            c, cv = _shade_lambertian_direct(scene, cfg, rays, hit, albedo)
-            merge(m, c, cv=cv)
-    if SHADER_PHONG in possible:
-        merge(sid == SHADER_PHONG, _shade_phong(scene, cfg, rays, hit))
-    if SHADER_MIRROR in possible:
-        z3 = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
-        merge(sid == SHADER_MIRROR, z3, _reflect_continue(rays, hit, cfg), yes,
-              e=yes if path else None)
-    transparent_direct = SHADER_TRANSPARENT in possible and not path
-    if possible & {SHADER_TRANSMIT, SHADER_GLOSSY} or transparent_direct:
-        tc, tnr, tct = _shade_transmit_direct(rays, hit, cfg)
-        if SHADER_TRANSMIT in possible:
-            merge(sid == SHADER_TRANSMIT, tc, tnr, tct)
-        if SHADER_GLOSSY in possible:
-            merge(sid == SHADER_GLOSSY, _shade_phong(scene, cfg, rays, hit) + tc, tnr, tct)
-        if transparent_direct:
-            merge(sid == SHADER_TRANSPARENT, tc, tnr, tct)
-    if SHADER_NORMAL in possible:
-        merge(sid == SHADER_NORMAL, (hit.normal + 1.0) * 0.5)
-    if SHADER_BASECOLOR in possible:
-        merge(sid == SHADER_BASECOLOR, albedo + hit.emission)
-    if SHADER_TRANSPARENT in possible and path:
-        merge(sid == SHADER_TRANSPARENT,
-              *_shade_transparent_path(scene, cfg, rays, hit, factor, state))
-    if SHADER_HOLDOUT in possible:
-        c, s, cv = _shade_holdout(scene, cfg, rays, hit, factor, state)
-        merge(sid == SHADER_HOLDOUT, c, s=s, cv=cv)
-    return (out["color"], out["rays"], out["cont"], out["factor"], out["emit"],
-            out["state"], out["conv"])
+        albedo = _plane_albedo(scene, cfg, hit)
+        if SHADER_LAMBERTIAN in possible:
+            m = sid == SHADER_LAMBERTIAN
+            if path:
+                merge(m, *_shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state))
+            else:
+                c, cv = _shade_lambertian_direct(scene, cfg, rays, hit, albedo)
+                merge(m, c, cv=cv)
+        if SHADER_PHONG in possible:
+            merge(sid == SHADER_PHONG, _shade_phong(scene, cfg, rays, hit))
+        if SHADER_MIRROR in possible:
+            z3 = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
+            merge(sid == SHADER_MIRROR, z3, _reflect_continue(rays, hit, cfg), yes,
+                  e=yes if path else None)
+        transparent_direct = SHADER_TRANSPARENT in possible and not path
+        if possible & {SHADER_TRANSMIT, SHADER_GLOSSY} or transparent_direct:
+            tc, tnr, tct = _shade_transmit_direct(rays, hit, cfg)
+            if SHADER_TRANSMIT in possible:
+                merge(sid == SHADER_TRANSMIT, tc, tnr, tct)
+            if SHADER_GLOSSY in possible:
+                merge(sid == SHADER_GLOSSY, _shade_phong(scene, cfg, rays, hit) + tc, tnr, tct)
+            if transparent_direct:
+                merge(sid == SHADER_TRANSPARENT, tc, tnr, tct)
+        if SHADER_NORMAL in possible:
+            merge(sid == SHADER_NORMAL, (hit.normal + 1.0) * 0.5)
+        if SHADER_BASECOLOR in possible:
+            merge(sid == SHADER_BASECOLOR, albedo + hit.emission)
+        if SHADER_TRANSPARENT in possible and path:
+            merge(sid == SHADER_TRANSPARENT,
+                  *_shade_transparent_path(scene, cfg, rays, hit, factor, state))
+        if SHADER_HOLDOUT in possible:
+            c, s, cv = _shade_holdout(scene, cfg, rays, hit, factor, state)
+            merge(sid == SHADER_HOLDOUT, c, s=s, cv=cv)
+        return (out["color"], out["rays"], out["cont"], out["factor"], out["emit"],
+                out["state"], out["conv"])
 
 
 # Shader ids that can respawn a continuation ray.
@@ -931,29 +935,31 @@ def bounce_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0=None,
             raise NotImplementedError(f"the {cfg.loop!r} bounce loop is not ported")
         radiance = _loop(scene, cfg, rays0, state0, full_depth)
         return radiance, torch.zeros_like(radiance[:, 0])
-    n = rays0.o.shape[0]
-    dev = rays0.o.device
-    hit = trace_closest(scene, cfg, rays0, seed_t=seed_t)
-    bad = ~hit.converged
-    miss = ~hit.valid
-    if cfg.env_light and scene.env is not None:
-        # The loop's miss colour at throughput one (_bounce).
-        bg = tex.environment_map(scene.env, vec.normalize(rays0.d, eps=1e-24))
-    else:
-        bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev).expand(n, 3)
-    result = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    result = result + vec.where(miss, bg, 0.0)
-    live = hit.valid
-    # The loop's initial throughput and emit flag, as views.
-    factor = torch.ones(3, dtype=torch.float32, device=dev).expand(n, 3)
-    emit = torch.ones(1, dtype=torch.bool, device=dev).expand(n)
-    color, *_, shade_conv = shade(scene, cfg, rays0, hit, factor, emit, state0)
-    bad = bad | (live & ~shade_conv)
-    if cfg.firefly_clamp > 0.0:
-        color = torch.clamp_max(color, cfg.firefly_clamp)
-    result = result + vec.where(live, color, 0.0)
-    seed_next = torch.where(hit.valid & hit.is_mesh, hit.t, 0.0)
-    return _paint_bad(result, bad), seed_next
+    obs.count("integrator.bounces")
+    with obs.span("integrator.bounce"):
+        n = rays0.o.shape[0]
+        dev = rays0.o.device
+        hit = trace_closest(scene, cfg, rays0, seed_t=seed_t)
+        bad = ~hit.converged
+        miss = ~hit.valid
+        if cfg.env_light and scene.env is not None:
+            # The loop's miss colour at throughput one (_bounce).
+            bg = tex.environment_map(scene.env, vec.normalize(rays0.d, eps=1e-24))
+        else:
+            bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev).expand(n, 3)
+        result = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        result = result + vec.where(miss, bg, 0.0)
+        live = hit.valid
+        # The loop's initial throughput and emit flag, as views.
+        factor = torch.ones(3, dtype=torch.float32, device=dev).expand(n, 3)
+        emit = torch.ones(1, dtype=torch.bool, device=dev).expand(n)
+        color, *_, shade_conv = shade(scene, cfg, rays0, hit, factor, emit, state0)
+        bad = bad | (live & ~shade_conv)
+        if cfg.firefly_clamp > 0.0:
+            color = torch.clamp_max(color, cfg.firefly_clamp)
+        result = result + vec.where(live, color, 0.0)
+        seed_next = torch.where(hit.valid & hit.is_mesh, hit.t, 0.0)
+        return _paint_bad(result, bad), seed_next
 
 
 def _bounce(scene: Scene, cfg: SceneConfig, carry: tuple) -> tuple:
@@ -1043,9 +1049,11 @@ def _loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0,
         state0,
     )
     for _ in range(cfg.max_depth):
-        if not full_depth and not bool((~carry[7]).any()):
+        if not full_depth and not obs.host_read("integrator.done", (~carry[7]).any()):
             break
-        carry = body(*carry)
+        obs.count("integrator.bounces")
+        with obs.span("integrator.bounce"):
+            carry = body(*carry)
     return _paint_bad(carry[4], carry[8])
 
 

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tracer_torch import obs
 from tracer_torch.render import integrator
 from tracer_torch.render.scene import Scene, SceneConfig
 
@@ -42,9 +43,10 @@ def init_state(cfg: SceneConfig, device) -> ProgressiveState:
 def step(scene: Scene, cfg: SceneConfig, state: ProgressiveState) -> ProgressiveState:
     """One progressive frame = one sample pass + accumulation, with the
     accumulator updated in place. Returns ``state``."""
-    scene = integrator.with_iteration(scene, state.iteration)
-    result, seed_t = integrator.render_sample_seeded(scene, cfg, state.seed_t)
-    integrator.accumulate(result, state.accum, state.iteration)
+    with obs.span("progressive.step"):
+        scene = integrator.with_iteration(scene, state.iteration)
+        result, seed_t = integrator.render_sample_seeded(scene, cfg, state.seed_t)
+        integrator.accumulate(result, state.accum, state.iteration)
     state.iteration = (state.iteration + 1) & 0xFFFFFFFF
     state.seed_t = seed_t
     return state
