@@ -71,14 +71,14 @@ from chip_smoke import (FIXTURES, OCCLUSION_CASES, brute_case, lane_tiles, narro
                         occlusion_case, scatter_streams, seeded_texture, sun_desc, super_lanes,
                         synthetic, synthetic_tiles, with_fixture_model, with_seeded_env,
                         with_standin_mesh)
-from tracer_torch import convert
-from tracer_torch.accel import flat, lbvh, treelet
+from tracer_torch import convert, obs
+from tracer_torch.accel import flat, lbvh, packet, treelet
 from tracer_torch.diff import grad as G
 from tracer_torch.geometry.procedural import bumpy_blob
 from tracer_torch.kernels import (intersect, scatter_vn, super_hits, super_occluded,
                                   treelet_hits)
 from tracer_torch.kernels.intersect import Rays, make_rays
-from tracer_torch.render import progressive
+from tracer_torch.render import integrator, progressive
 from tracer_torch.render import texture as tex
 from tracer_torch.scenes.build import build_scene
 from tracer_torch.scenes.registry import get_scene
@@ -441,6 +441,79 @@ def test_path_frames_on_card_match_cpu(cuda, name, size):
         accs[str(dev)] = st.accum
     assert _bits_equal(accs["cpu"], accs[str(cuda)])
     assert float(accs["cpu"].max()) > 0
+
+
+def _halved(tb):
+    """The same treelet tree around its mesh scaled by 1/2 (exact in
+    float32): another mesh whose walk has the same shapes."""
+    top, q = tb.top.clone(), tb.qblocks.clone()
+    top[:, :, 0:6] *= 0.5
+    q[:, 0:9] *= 0.5
+    q[:, 11:14] *= 0.25
+    q[:, 14] *= 0.125
+    return dataclasses.replace(tb, top=top, qblocks=q, qbox=tb.qbox * 0.5, t_lo=tb.t_lo * 0.5,
+                               t_hi=tb.t_hi * 0.5)
+
+
+def _packet_run(tb, rays, any_hit, graph, monkeypatch):
+    """``packet._run`` on ``tb``'s own walk table: through the phase A graph,
+    or through the same walk's eager loop (no graph captured)."""
+    with monkeypatch.context() as m:
+        if not graph:
+            tb = dataclasses.replace(tb)
+            m.setattr(packet._Walk, "_capture", lambda self, dev: None)
+        c0 = obs.counters()
+        out = packet._run(rays, tb, None, any_hit)
+        replays = obs.counters().get("packet.phase_a_graph_replays", 0) - c0.get(
+            "packet.phase_a_graph_replays", 0)
+    assert (replays > 0) == graph
+    return out
+
+
+@pytest.mark.cuda
+def test_phase_a_graph_walks_as_the_eager_loop(cuda, monkeypatch):
+    """Packet phase A replayed from its CUDA graph against the same walk's
+    eager loop on the card: W9 E1's first-bounce wavefront at 128x128,
+    closest hit and any hit, ``K_EMIT`` = 16 so tiles pause for several
+    rounds: bt, bp and conv bit for bit. A second tree in the same process
+    (the bunny's scaled by 1/2, so its walk has the same shapes and key)
+    captures a graph of its own and gives its own eager answer. Over three
+    frames the captures stay at one per key and each batch of
+    ``CHECK_EVERY`` iterations is one replay."""
+    desc = get_scene("W9 E1 Bunny")
+    desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=128, height=128))
+    scene, cfg = build_scene(desc, cuda)
+    scene = with_seeded_env(scene, desc, cuda)
+    rays, _ = integrator._path_primary(scene, cfg)
+    half = Rays(rays.o * 0.5, rays.d, rays.tmin * 0.5, rays.tmax)
+    with monkeypatch.context() as m:
+        m.setattr(packet, "K_EMIT", 16)
+        rounds = []
+        dispatch = packet._dispatch_hits
+        m.setattr(packet, "_dispatch_hits", lambda *a: rounds.append(a[3]) or dispatch(*a))
+        for tb, r in ((scene.tb, rays), (_halved(scene.tb), half)):
+            captures = obs.counters().get("packet.phase_a_graph_captures", 0)
+            for any_hit in (False, True):
+                rounds.clear()
+                got = _packet_run(tb, r, any_hit, True, monkeypatch)
+                assert len(rounds) > 1 and int(rounds[0].max()) > 16 - 8
+                want = _packet_run(tb, r, any_hit, False, monkeypatch)
+                assert all(_bits_equal(a, b) for a, b in zip(got, want))
+                assert int((got[1] >= 0).sum()) > 100 and bool(got[2].all())
+            assert obs.counters()["packet.phase_a_graph_captures"] == captures + 1
+            assert len(tb.walks) == 1
+
+    names = ("packet.phase_a_graph_captures", "packet.phase_a_graph_replays",
+             "packet.phase_a_iterations")
+    st = progressive.init_state(cfg, cuda)
+    seen = []
+    for _ in range(3):
+        c0 = obs.counters()
+        progressive.step(scene, cfg, st)
+        seen.append([obs.counters().get(k, 0) - c0.get(k, 0) for k in names])
+    torch.cuda.synchronize()
+    assert [c[0] for c in seen] == [1, 0, 0] and len(scene.tb.walks) == 2
+    assert all(c[1] > 0 and c[1] * packet.CHECK_EVERY == c[2] for c in seen)
 
 
 @pytest.mark.cuda

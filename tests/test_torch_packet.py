@@ -22,6 +22,8 @@ may be far apart). On agreeing lanes t agrees to 1e-5 relative.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,6 +154,139 @@ def test_pause_and_resume_rounds(blob, monkeypatch):
     assert len(rounds) > 1 and int(rounds[0].max()) > 16 - 8
     _assert_agree(mesh, o, d, *port, *jax_side)
     _assert_agree(mesh, o, d, *port, *brute)
+
+
+def _rebinding_walk(top, top_ref, D, K, st, o, d, tmin, prune):
+    """Phase A as it was written before its body updated fixed buffers in
+    place: every step rebinds a name to a new tensor. The reference that the
+    in-place walk (the body a CUDA graph captures) must equal bit for bit."""
+    INF, C, R = packet._INF, o.shape[0], top.shape[0]
+    inv_d = 1.0 / d
+    eids = torch.zeros((C, K), dtype=torch.int64)
+    enear = torch.full((C, K), INF, dtype=torch.float32)
+    en = torch.zeros(C, dtype=torch.int64)
+    st.paused = torch.zeros_like(st.paused)
+    kiota, slot8, rows = torch.arange(K)[None, :], torch.arange(8)[None, :], torch.arange(C)
+    amax = prune.amax(dim=1)
+    o_, inv_, tmin_, prune_ = o[:, None], inv_d[:, None], tmin[:, None], prune[:, None]
+    it = 0
+    while it < packet.MAX_IT and bool((~st.done & ~st.paused).any()):
+        for _ in range(min(packet.CHECK_EVERY, packet.MAX_IT - it)):
+            active = ~st.done & ~st.paused
+            visit = active & ~st.asc
+            curc = st.cur.clamp(0, R - 1)
+            row, ref = top[curc], top_ref[curc]
+            t0 = (row[:, :, None, 0:3] - o_) * inv_
+            t1 = (row[:, :, None, 3:6] - o_) * inv_
+            near = torch.minimum(t0, t1).amax(dim=-1)
+            far = torch.maximum(t0, t1).amin(dim=-1)
+            ray_ok = (near <= far) & (far >= tmin_) & (near < prune_)
+            child_hit = ray_ok.any(dim=-1)
+            child_near = torch.where(ray_ok, torch.clamp_min(near, 0.0), INF).amin(dim=-1)
+            hit_v = visit[:, None] & child_hit
+            tre_key = torch.where(hit_v & (ref <= -2), child_near, INF)
+            ikey = torch.where(hit_v & (ref >= 0), child_near, INF)
+            tids = -2 - ref
+            n_add = torch.zeros_like(en)
+            for _ in range(8):
+                sel = slot8 == tre_key.argmin(dim=1)[:, None]
+                mn = tre_key.amin(dim=1)
+                live = mn < INF
+                tid = torch.where(sel, tids, 0).sum(dim=1)
+                w = (kiota == (en + n_add)[:, None]) & live[:, None]
+                eids = torch.where(w, tid[:, None], eids)
+                enear = torch.where(w, mn[:, None], enear)
+                n_add = n_add + live.long()
+                tre_key = torch.where(sel, INF, tre_key)
+            en = en + n_add
+            c_sel = slot8 == ikey.argmin(dim=1)[:, None]
+            has_child = visit & (ikey.amin(dim=1) < INF)
+            c_ref = torch.where(c_sel, ref, 0).sum(dim=1)
+            lvl = st.level.clamp(0, D - 1)
+            s_near, s_ref = st.snear[rows, lvl], st.sref[rows, lvl]
+            a_key = torch.where(s_near < amax[:, None], s_near, INF)
+            a_sel = slot8 == a_key.argmin(dim=1)[:, None]
+            a_has = st.asc & active & (a_key.amin(dim=1) < INF)
+            a_ref = torch.where(a_sel, s_ref, 0).sum(dim=1)
+            st.snear[rows, lvl] = torch.where(
+                has_child[:, None], torch.where(c_sel, INF, ikey),
+                torch.where(a_has[:, None] & a_sel, INF, s_near))
+            st.sref[rows, lvl] = torch.where(has_child[:, None], ref, s_ref)
+            go_asc = (visit & ~has_child) | (st.asc & active & ~a_has)
+            descend = has_child | a_has
+            st.cur = torch.where(has_child, c_ref, torch.where(a_has, a_ref, st.cur))
+            st.level = torch.where(descend, lvl + 1, torch.where(go_asc, st.level - 1, st.level))
+            st.asc = torch.where(descend, False, torch.where(go_asc, True, st.asc))
+            st.done = st.done | (go_asc & (st.level < 0))
+            st.paused = st.paused | (active & ~st.done & (en > K - 8))
+        it += packet.CHECK_EVERY
+    return eids, enear, en
+
+
+STATE = [f.name for f in dataclasses.fields(packet.TravState)]
+
+
+def _walks(monkeypatch, walk):
+    """Each call of ``walk`` in place of ``packet._phase_a_chunk``: the
+    state before it, its inputs and emissions, and the state after it."""
+    calls = []
+
+    def spy(tb, D, K, st, *ins):
+        before = {f: getattr(st, f).clone() for f in STATE}
+        out = walk(tb, D, K, st, *ins)
+        calls.append((before, ins, out, {f: getattr(st, f).clone() for f in STATE}))
+        return out
+
+    monkeypatch.setattr(packet, "_phase_a_chunk", spy)
+    return calls
+
+
+def _bits(t):
+    t = torch.as_tensor(np.array(t))
+    return t.view(torch.int32) if t.dtype == torch.float32 else t.long()
+
+
+@pytest.mark.parametrize("chunk", [packet.CHUNK_TILES, 3], ids=["one_chunk", "chunks_of_3"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+def test_in_place_walk_matches_the_rebinding_walk_and_jax(blob, monkeypatch, any_hit, chunk):
+    """The walk's in-place body, called through its fixed buffers (copy in,
+    iterate, copy out, one buffer set shared by the chunks of a wavefront),
+    with ``K_EMIT`` = 16 so tiles pause for several rounds: every call's
+    emissions and resumed state, and the query's bt, bp and conv, bit for
+    bit those of the walk that rebinds its names; and every call's emissions
+    and state bit for bit those of the JAX package's phase A on the same
+    state and inputs."""
+    mesh, jtb, tb = blob
+    o, d = _mixed(n=1024, seed=7)
+    rays = make_rays(torch.as_tensor(o), torch.as_tensor(d), tmax=4.0 if any_hit else 5000.0)
+    monkeypatch.setattr(packet, "K_EMIT", 16)
+    monkeypatch.setattr(packet, "CHUNK_TILES", chunk)
+    real = packet._phase_a_chunk
+    ref = _walks(monkeypatch, lambda tb, D, K, st, *ins: _rebinding_walk(tb.top, tb.top_ref, D, K,
+                                                                          st, *ins))
+    want = packet._run(rays, tb, None, any_hit)
+    got_calls = _walks(monkeypatch, real)
+    got = packet._run(rays, tb, None, any_hit)
+    n_chunks = -(-8 // min(chunk, 8))
+    assert len(got_calls) == len(ref) > n_chunks  # several rounds
+    assert int(got_calls[0][2][2].max()) > 16 - 8
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    for (b0, _, out, b1), (r0, _, rout, r1) in zip(got_calls, ref):
+        for x, y in zip([*b0.values(), *out, *b1.values()], [*r0.values(), *rout, *r1.values()]):
+            assert torch.equal(_bits(x), _bits(y))
+
+    jwalk = jax.jit(jax_packet._phase_a_chunk, static_argnums=(1, 2))
+    jtop = jnp.asarray(tb.top.numpy())
+    D = max(tb.depth, 1)
+    for before, ins, out, after in got_calls:
+        jst = jax_packet.TravState(**{f: jnp.asarray(v.numpy().astype(np.int32) if v.dtype ==
+                                                     torch.int64 else v.numpy())
+                                      for f, v in before.items()})
+        jafter, jout = jwalk(jtop, D, 16, jst, *(jnp.asarray(x.numpy()) for x in ins))
+        for x, y in zip([*out, *after.values()],
+                        [*jout, *(getattr(jafter, f) for f in STATE)]):
+            assert torch.equal(_bits(x), _bits(y))
 
 
 def test_tiling_round_trip():

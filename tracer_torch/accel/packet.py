@@ -18,13 +18,16 @@ so it emits the same blocks as the JAX package. JAX's ``while_loop`` over
 phase A becomes a host loop that reads its condition every
 ``CHECK_EVERY`` iterations: an iteration changes nothing for a tile that
 is done or paused, so the extra iterations are no-ops, and the count never
-exceeds ``MAX_IT``. The JAX package's XLA phase B is the kernel's twin,
+exceeds ``MAX_IT``. On a CUDA device each batch of ``CHECK_EVERY``
+iterations is one replay of a CUDA graph of the same loop body
+(``_Walk``): the host launches one graph where it would launch each
+operation of the walk. The JAX package's XLA phase B is the kernel's twin,
 ``treelet_hits.hits_reference``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
@@ -117,116 +120,185 @@ def _init_state(C: int, D: int, device) -> TravState:
     )
 
 
-def _top_refs(top: torch.Tensor) -> torch.Tensor:
-    """The (R, 8) child refs of the top tree: column 6 holds int32 bits."""
-    return top[:, :, 6].contiguous().view(torch.int32).long()
+_STATE = [f.name for f in fields(TravState)]
 
 
-def _phase_a_chunk(top, top_ref, D: int, K: int, st: TravState, o, d, tmin, prune):
+class _Walk:
+    """Phase A's fixed buffers for one chunk shape (C tiles, stack depth D,
+    K emissions) of one tree: the walk's inputs, a chunk's ``TravState``
+    and the round's emissions. A call copies its chunk in, iterates
+    ``_body`` on them and copies the state out.
+
+    On a CUDA device they also hold a graph of ``CHECK_EVERY`` iterations,
+    captured when the buffers are made, before any chunk is copied in: its
+    replay launches the eager loop's kernels on the same addresses, so it
+    walks bit for bit as the eager loop does, with one host launch where
+    the loop makes one per operation. The graph reads the tree's ``top``
+    and ``top_ref`` by address too, so the buffers live in the tree's own
+    table (``TreeletBvh.walks``), keyed by device and shape."""
+
+    def __init__(self, tb: TreeletBvh, C: int, D: int, K: int, dev: torch.device):
+        self.top, self.top_ref, self.D, self.K = tb.top, tb.top_ref, D, K
+        f32 = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+        self.o, self.inv_d = f32(C, TILE, 3), f32(C, TILE, 3)
+        self.tmin, self.prune, self.amax = f32(C, TILE), f32(C, TILE), f32(C)
+        self.rows = torch.arange(C, device=dev)
+        self.kiota = torch.arange(K, device=dev)[None, :]
+        self.slot8 = torch.arange(8, device=dev)[None, :]
+        self.st = _init_state(C, D, dev)
+        self.eids = torch.zeros((C, K), dtype=torch.int64, device=dev)
+        self.enear = f32(C, K)
+        self.en = torch.zeros(C, dtype=torch.int64, device=dev)
+        self.graph = self._capture(dev) if dev.type == "cuda" else None
+
+    def _capture(self, dev: torch.device):
+        """One eager iteration on a side stream first, as ``torch.cuda.graph``
+        asks (lazy initialisation stays out of the graph), then the capture,
+        which runs nothing on the card. Whatever either leaves in the buffers
+        is overwritten by the first call's copy-in."""
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            _body(self)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.graph(graph, stream=stream,
+                                                      capture_error_mode="thread_local"):
+            for _ in range(CHECK_EVERY):
+                _body(self)
+        obs.count("packet.phase_a_graph_captures")
+        return graph
+
+    def load(self, st: TravState, o, d, tmin, prune) -> None:
+        self.o.copy_(o)
+        self.inv_d.copy_(1.0 / d)
+        self.tmin.copy_(tmin)
+        self.prune.copy_(prune)
+        torch.amax(prune, dim=1, out=self.amax)  # loosest per-ray bound, for the ascent
+        for f in _STATE:
+            getattr(self.st, f).copy_(getattr(st, f))
+        self.st.paused.zero_()
+        self.eids.zero_()
+        self.enear.fill_(_INF)
+        self.en.zero_()
+
+    def store(self, st: TravState) -> None:
+        for f in _STATE:
+            getattr(st, f).copy_(getattr(self.st, f))
+
+
+def _walk(tb: TreeletBvh, C: int, D: int, K: int, dev: torch.device) -> _Walk:
+    key = (dev, C, D, K)
+    if key not in tb.walks:
+        tb.walks[key] = _Walk(tb, C, D, K, dev)
+    return tb.walks[key]
+
+
+def _body(wk: _Walk) -> None:
+    """One iteration of the walk, in place on ``wk``'s buffers."""
+    st, top, top_ref, slot8, kiota = wk.st, wk.top, wk.top_ref, wk.slot8, wk.kiota
+    R, D, K = top.shape[0], wk.D, wk.K
+    o_ = wk.o[:, None, :, :]
+    inv_ = wk.inv_d[:, None, :, :]
+    tmin_ = wk.tmin[:, None, :]
+    prune_ = wk.prune[:, None, :]
+
+    active = ~st.done & ~st.paused
+    visit = active & ~st.asc
+    curc = st.cur.clamp(0, R - 1)
+    row = top[curc]  # (C, 8, 8)
+    ref = top_ref[curc]  # (C, 8)
+
+    # 8-wide slab test against every ray of the tile: (C, 8, TILE).
+    t0 = (row[:, :, None, 0:3] - o_) * inv_
+    t1 = (row[:, :, None, 3:6] - o_) * inv_
+    near = torch.minimum(t0, t1).amax(dim=-1)
+    far = torch.maximum(t0, t1).amin(dim=-1)
+    ray_ok = (near <= far) & (far >= tmin_) & (near < prune_)
+    child_hit = ray_ok.any(dim=-1)  # (C, 8)
+    child_near = torch.where(ray_ok, torch.clamp_min(near, 0.0), _INF).amin(dim=-1)
+
+    hit_v = visit[:, None] & child_hit
+    tre_key = torch.where(hit_v & (ref <= -2), child_near, _INF)
+    ikey = torch.where(hit_v & (ref >= 0), child_near, _INF)
+
+    # Emit treelet children in near order (selection over 8 slots).
+    tids = -2 - ref
+    n_add = torch.zeros_like(wk.en)
+    for _ in range(8):
+        sel = slot8 == tre_key.argmin(dim=1)[:, None]
+        mn = tre_key.amin(dim=1)
+        live = mn < _INF
+        tid = torch.where(sel, tids, 0).sum(dim=1)
+        w = (kiota == (wk.en + n_add)[:, None]) & live[:, None]
+        torch.where(w, tid[:, None], wk.eids, out=wk.eids)
+        torch.where(w, mn[:, None], wk.enear, out=wk.enear)
+        n_add = n_add + live.long()
+        tre_key = torch.where(sel, _INF, tre_key)
+    wk.en += n_add
+
+    # Descend into the nearest inner child; park its siblings at
+    # stack[level].
+    c_sel = slot8 == ikey.argmin(dim=1)[:, None]
+    has_child = visit & (ikey.amin(dim=1) < _INF)
+    c_ref = torch.where(c_sel, ref, 0).sum(dim=1)
+
+    # Ascend: pop the nearest unconsumed sibling at this level, pruned
+    # against the loosest per-ray bound (conservative).
+    lvl = st.level.clamp(0, D - 1)
+    s_near = st.snear[wk.rows, lvl]  # (C, 8)
+    s_ref = st.sref[wk.rows, lvl]
+    a_key = torch.where(s_near < wk.amax[:, None], s_near, _INF)
+    a_sel = slot8 == a_key.argmin(dim=1)[:, None]
+    a_has = st.asc & active & (a_key.amin(dim=1) < _INF)
+    a_ref = torch.where(a_sel, s_ref, 0).sum(dim=1)
+
+    new_near = torch.where(
+        has_child[:, None],
+        torch.where(c_sel, _INF, ikey),
+        torch.where(a_has[:, None] & a_sel, _INF, s_near),
+    )
+    st.snear[wk.rows, lvl] = new_near
+    st.sref[wk.rows, lvl] = torch.where(has_child[:, None], ref, s_ref)
+
+    # Transitions: ``done`` reads the new level, ``paused`` the new done and
+    # emission count.
+    go_asc = (visit & ~has_child) | (st.asc & active & ~a_has)
+    descend = has_child | a_has
+    torch.where(has_child, c_ref, torch.where(a_has, a_ref, st.cur), out=st.cur)
+    torch.where(descend, lvl + 1, torch.where(go_asc, st.level - 1, st.level), out=st.level)
+    st.asc.copy_(torch.where(descend, False, torch.where(go_asc, True, st.asc)))
+    st.done |= go_asc & (st.level < 0)
+    # Pause before visiting a node that might not fit 8 more emissions.
+    st.paused |= active & ~st.done & (wk.en > K - 8)
+
+
+def _phase_a_chunk(tb: TreeletBvh, D: int, K: int, st: TravState, o, d, tmin, prune):
     """Run one chunk of tiles until every tile is done or paused.
 
     ``prune``: (C, TILE) per-ray upper bound on a useful t (the best t so
     far for closest hit; -inf for occluded lanes in any-hit mode). Updates
     ``st`` in place and returns this round's emissions (ids (C, K), nears
-    (C, K), counts (C,)).
+    (C, K), counts (C,)). Each batch of ``CHECK_EVERY`` iterations is one
+    graph replay on a CUDA device; CPU tensors, and a last batch cut short
+    by ``MAX_IT``, iterate eagerly.
     """
-    with obs.span("packet.phase_a"):
-        C = o.shape[0]
-        R = top.shape[0]
-        dev = o.device
-        inv_d = 1.0 / d
-        eids = torch.zeros((C, K), dtype=torch.int64, device=dev)
-        enear = torch.full((C, K), _INF, dtype=torch.float32, device=dev)
-        en = torch.zeros(C, dtype=torch.int64, device=dev)
-        st.paused = torch.zeros_like(st.paused)
-        kiota = torch.arange(K, device=dev)[None, :]
-        slot8 = torch.arange(8, device=dev)[None, :]
-        rows = torch.arange(C, device=dev)
-        amax = prune.amax(dim=1)  # (C,) loosest per-ray bound, for the ascent
-        o_ = o[:, None, :, :]
-        inv_ = inv_d[:, None, :, :]
-        tmin_ = tmin[:, None, :]
-        prune_ = prune[:, None, :]
-
-        def body():
-            nonlocal eids, enear, en
-            active = ~st.done & ~st.paused
-            visit = active & ~st.asc
-            curc = st.cur.clamp(0, R - 1)
-            row = top[curc]  # (C, 8, 8)
-            ref = top_ref[curc]  # (C, 8)
-
-            # 8-wide slab test against every ray of the tile: (C, 8, TILE).
-            t0 = (row[:, :, None, 0:3] - o_) * inv_
-            t1 = (row[:, :, None, 3:6] - o_) * inv_
-            near = torch.minimum(t0, t1).amax(dim=-1)
-            far = torch.maximum(t0, t1).amin(dim=-1)
-            ray_ok = (near <= far) & (far >= tmin_) & (near < prune_)
-            child_hit = ray_ok.any(dim=-1)  # (C, 8)
-            child_near = torch.where(ray_ok, torch.clamp_min(near, 0.0), _INF).amin(dim=-1)
-
-            hit_v = visit[:, None] & child_hit
-            tre_key = torch.where(hit_v & (ref <= -2), child_near, _INF)
-            ikey = torch.where(hit_v & (ref >= 0), child_near, _INF)
-
-            # Emit treelet children in near order (selection over 8 slots).
-            tids = -2 - ref
-            n_add = torch.zeros_like(en)
-            for _ in range(8):
-                sel = slot8 == tre_key.argmin(dim=1)[:, None]
-                mn = tre_key.amin(dim=1)
-                live = mn < _INF
-                tid = torch.where(sel, tids, 0).sum(dim=1)
-                w = (kiota == (en + n_add)[:, None]) & live[:, None]
-                eids = torch.where(w, tid[:, None], eids)
-                enear = torch.where(w, mn[:, None], enear)
-                n_add = n_add + live.long()
-                tre_key = torch.where(sel, _INF, tre_key)
-            en = en + n_add
-
-            # Descend into the nearest inner child; park its siblings at
-            # stack[level].
-            c_sel = slot8 == ikey.argmin(dim=1)[:, None]
-            has_child = visit & (ikey.amin(dim=1) < _INF)
-            c_ref = torch.where(c_sel, ref, 0).sum(dim=1)
-
-            # Ascend: pop the nearest unconsumed sibling at this level, pruned
-            # against the loosest per-ray bound (conservative).
-            lvl = st.level.clamp(0, D - 1)
-            s_near = st.snear[rows, lvl]  # (C, 8)
-            s_ref = st.sref[rows, lvl]
-            a_key = torch.where(s_near < amax[:, None], s_near, _INF)
-            a_sel = slot8 == a_key.argmin(dim=1)[:, None]
-            a_has = st.asc & active & (a_key.amin(dim=1) < _INF)
-            a_ref = torch.where(a_sel, s_ref, 0).sum(dim=1)
-
-            new_near = torch.where(
-                has_child[:, None],
-                torch.where(c_sel, _INF, ikey),
-                torch.where(a_has[:, None] & a_sel, _INF, s_near),
-            )
-            st.snear[rows, lvl] = new_near
-            st.sref[rows, lvl] = torch.where(has_child[:, None], ref, s_ref)
-
-            # Transitions.
-            go_asc = (visit & ~has_child) | (st.asc & active & ~a_has)
-            descend = has_child | a_has
-            st.cur = torch.where(has_child, c_ref, torch.where(a_has, a_ref, st.cur))
-            st.level = torch.where(descend, lvl + 1,
-                                   torch.where(go_asc, st.level - 1, st.level))
-            st.asc = torch.where(descend, False, torch.where(go_asc, True, st.asc))
-            st.done = st.done | (go_asc & (st.level < 0))
-            # Pause before visiting a node that might not fit 8 more emissions.
-            st.paused = st.paused | (active & ~st.done & (en > K - 8))
-
+    with obs.span("packet.phase_a"), torch.no_grad():
+        wk = _walk(tb, o.shape[0], D, K, o.device)
+        wk.load(st, o, d, tmin, prune)
         it = 0
-        while it < MAX_IT and obs.host_read("packet.walk", (~st.done & ~st.paused).any()):
+        while it < MAX_IT and obs.host_read("packet.walk", (~wk.st.done & ~wk.st.paused).any()):
             n = min(CHECK_EVERY, MAX_IT - it)
             obs.count("packet.phase_a_iterations", n)
-            for _ in range(n):
-                body()
+            if wk.graph is not None and n == CHECK_EVERY:
+                obs.count("packet.phase_a_graph_replays")
+                wk.graph.replay()
+            else:
+                for _ in range(n):
+                    _body(wk)
             it += n
-        return eids, enear, en
+        wk.store(st)
+        return wk.eids.clone(), wk.enear.clone(), wk.en.clone()
 
 
 # ---------------------------------------------------------------------------
@@ -278,13 +350,11 @@ def _run(rays: Rays, tb: TreeletBvh, frame, any_hit: bool):
     states = [_init_state(C, D, dev) for _ in range(nc)]
     bt = tmax.clone()  # closest: prune at the current best; any-hit: window top
     bp = torch.full((nc * C, TILE), -1.0, dtype=torch.float32, device=dev)
-    top = tb.top
-    top_ref = _top_refs(top)
 
     def round_body(bt, bp):
         prune = torch.where(bp > 0.0, -_INF, tmax) if any_hit else bt
         ems = [
-            _phase_a_chunk(top, top_ref, D, K_EMIT, states[c], o[c * C:(c + 1) * C],
+            _phase_a_chunk(tb, D, K_EMIT, states[c], o[c * C:(c + 1) * C],
                            d[c * C:(c + 1) * C], tmin[c * C:(c + 1) * C],
                            prune[c * C:(c + 1) * C])
             for c in range(nc)

@@ -23,7 +23,8 @@ both. The JAX package's matmul-form (MXU) table has no counterpart here.
 from __future__ import annotations
 
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -45,10 +46,21 @@ class TreeletBvh:
     top: torch.Tensor  # (R, 8, 8) f32 top tree: [lo3, hi3, ref (i32 bits), pad]
     T: int  # triangles per block
     depth: int  # max top-tree descent depth (the packet walk's stack bound)
+    # Packet phase A's fixed buffers and CUDA graphs by chunk shape
+    # (``accel.packet._walk``). A graph holds the addresses of this tree's
+    # buffers, so the table is the tree's own: ``dataclasses.replace`` starts
+    # an empty one.
+    walks: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def NT(self) -> int:
         return int(self.qbox.shape[0])
+
+    @cached_property
+    def top_ref(self) -> torch.Tensor:
+        """The (R, 8) child refs of the top tree (column 6 holds their int32
+        bits), computed once per tree."""
+        return self.top[:, :, 6].contiguous().view(torch.int32).long()
 
 
 @dataclass(frozen=True)
