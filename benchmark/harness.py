@@ -6,7 +6,10 @@ metric is data or a module found by name:
 
 * ``BENCHMARK.json`` lists the cells and metrics;
 * ``benchmark/configs/<config>.json``: the registry row, its resolution,
-  camera, shading, material and stand-in, ``source``, ``reduced`` and
+  camera, shading (``scene``, every key checked against the row), material,
+  mesh (a procedural stand-in, ``model`` + ``standin``, or a model file of
+  the repository, ``obj``), analytic primitives (``spheres``, ``planes``,
+  ``tris``, checked against the row), ``source``, ``reduced`` and
   ``assumed``;
 * ``benchmark/workloads/<cell>.json``: the traffic: ``loop`` names the
   module of ``benchmark/loops/`` that drives the program in the window,
@@ -22,7 +25,10 @@ of work ending in ``sync``, ``output(seed, units)``: the program's answer
 and the numbers it carries itself, such as ``frames_missing``). A
 reference module holds ``output(cell, inputs, seed, mesh, units, device,
 r)``, the reference's (answer, aux) in the precision ``r``, and
-``numbers(prog, answer, aux)``.
+``numbers(prog, answer, aux)``. Its ``mesh`` is the benchmark's own
+(``reference_mesh``): the stand-in's (V, Nv, I), or for an ``obj``
+configuration an ``objfile.Mesh``, whose first three fields are those and
+which adds each face's material and the stated primitives.
 
 The program is the PyTorch port, ``tracer_torch``; nothing here imports
 ``tracer`` or ``jax``.
@@ -45,9 +51,10 @@ import torch
 from benchmark import inputs as inp, trace as tr
 from benchmark.reference import compare, env as ref_env
 from benchmark.reference import render as R
-from benchmark.reference import standin
+from benchmark.reference import objfile, standin
 
 BENCH = Path(__file__).resolve().parent
+ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "tracer")
 
 
@@ -104,16 +111,27 @@ def cell(root: Path, name: str, overrides: dict | None = None) -> Cell:
 # --- the program's side -----------------------------------------------------
 
 
-SCENE_KEYS = ("mode", "max_depth", "eta", "tmax", "bg_color", "lights", "dir_light_direction",
-              "dir_light_intensity", "shadows", "ambient", "use_vertex_normals", "env_light")
+PRIMITIVES = ("spheres", "planes", "tris")
+
+
+def _plain(x):
+    """``x`` with every tuple a list, all the way down, as JSON states it."""
+    return [_plain(v) for v in x] if isinstance(x, (tuple, list)) else x
 
 
 def build(c: Cell, inputs: dict, device, timings: dict):
     """(scene, cfg) built by the program from the configuration's row, at
     the configuration's resolution, with the traffic's shading overrides,
-    the seeded environment (``env``) and the stand-in's normals turned
-    outward where ``standin.flip_normals`` asks. Raises if the row's
-    shading or camera is not what the configuration file states."""
+    the seeded environment (``env``). The mesh is the stand-in that the
+    row's model, renamed to ``model``, stands for (``standin``: the
+    generator's arguments, with its normals turned outward where
+    ``flip_normals`` asks), or the repository's file that ``obj`` names
+    (``file``, relative to the repository's root, and ``scale``). Raises
+    if the row's shading differs from any key that the configuration's
+    ``scene`` (with the traffic's overrides) states, if its camera, its
+    analytic primitives or its model's scale differ from the
+    configuration's, or if the row has primitives that the configuration
+    does not state."""
     from tracer_torch.geometry.device import refresh_tri_table
     from tracer_torch.render import texture
     from tracer_torch.scenes.build import build_scene
@@ -124,18 +142,29 @@ def build(c: Cell, inputs: dict, device, timings: dict):
     cfg = dataclasses.replace(desc.cfg, width=conf["width"], height=conf["height"],
                               **{k: tuple(v) if isinstance(v, list) else v
                                  for k, v in c.traffic.get("cfg", {}).items()})
-    scene_cfg = inp.scene_config(conf, c.traffic)
-    for k in SCENE_KEYS:
-        got, want = getattr(cfg, k), scene_cfg[k]
-        if (list(got) if isinstance(got, tuple) else got) != want:
-            raise ValueError(f"{conf['row']}: {k} is {got!r}, the configuration states {want!r}")
-    cam0 = {k: list(v) if isinstance(v, tuple) else v for k, v in desc.camera.items()}
+    for k, want in inp.scene_config(conf, c.traffic).items():
+        if not hasattr(cfg, k):
+            raise ValueError(f"{conf['row']}: the row has no setting {k!r}")
+        if _plain(getattr(cfg, k)) != want:
+            raise ValueError(f"{conf['row']}: {k} is {getattr(cfg, k)!r}, the configuration "
+                             f"states {want!r}")
+    cam0 = {k: _plain(v) for k, v in desc.camera.items()}
     if any(cam0[k] != conf["camera"][k] for k in ("eye", "target", "up", "constant")):
         raise ValueError(f"{conf['row']}: camera {cam0} differs from the configuration's")
-    model = str(Path(desc.model).with_name(conf["model"]))
+    for k in PRIMITIVES:
+        got, want = _plain(getattr(desc, k)), conf.get(k, [])
+        if got != want:
+            raise ValueError(f"{conf['row']}: {k} {got} differ from the configuration's {want}")
+    if "obj" in conf:
+        if desc.model_scale != conf["obj"]["scale"]:
+            raise ValueError(f"{conf['row']}: model scale {desc.model_scale!r}, the "
+                             f"configuration states {conf['obj']['scale']!r}")
+        model = str(ROOT / conf["obj"]["file"])
+    else:
+        model = str(Path(desc.model).with_name(conf["model"]))
     desc = dataclasses.replace(desc, cfg=cfg, model=model, camera=dict(inputs["camera"]))
     scene, cfg = build_scene(desc, device, timings=timings)
-    if conf["standin"].get("flip_normals"):
+    if "obj" not in conf and conf["standin"].get("flip_normals"):
         geom = dataclasses.replace(scene.geom, normals=-scene.geom.normals)
         scene = dataclasses.replace(scene, geom=refresh_tri_table(geom))
     if conf.get("env"):
@@ -317,8 +346,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, device, *, root: Path
         result["breakdown"] = probe.trace.breakdown()
     del probe, readers
     # The program's outputs, then its state freed before the reference runs.
-    mesh = standin.make(c.config["standin"])
-    mesh_ok = _same_mesh(scene, mesh)
+    mesh = reference_mesh(c.config)
+    differs = mesh_differs(scene, mesh)
     prog, own = output(seed, len(times))
     del scene, unit_fn, output
     if on_card:
@@ -330,7 +359,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, device, *, root: Path
         numbers = {k: math.inf for k in limits}
     else:
         numbers = reference_numbers(c, inputs, seed, prog, mesh, len(times), dev)
-    numbers.update(own, mesh_differs=0.0 if mesh_ok else 1.0)
+    numbers.update(own, mesh_differs=differs)
     if keep is not None:
         keep.update(cell=c, seed=seed, inputs=inputs, mesh=mesh, units=len(times), prog=prog,
                     numbers=numbers, limits=limits)
@@ -343,15 +372,39 @@ def run(name: str, seed: int, seconds: float, trace: bool, device, *, root: Path
     return result
 
 
-def _same_mesh(scene, mesh) -> bool:
-    V, Nv, I = mesh
+def reference_mesh(conf: dict):
+    """The benchmark's own mesh of a configuration: the frozen stand-in's
+    (V, Nv, I), or the frozen parse of its ``obj`` file with each face's
+    material and the stated primitives (``objfile.Mesh``)."""
+    if "obj" not in conf:
+        return standin.make(conf["standin"])
+    o = conf["obj"]
+    mesh = objfile.load(ROOT / o["file"], o["scale"])
+    return mesh._replace(**{k: conf.get(k, []) for k in PRIMITIVES})
+
+
+def mesh_differs(scene, mesh) -> float:
+    """0.0 where the program's mesh is the benchmark's bit for bit: the
+    vertices, normals and indices, and for an ``objfile.Mesh`` also each
+    face's diffuse and emitted colour (the program's material table at its
+    material ids) and the light list; else 1.0."""
+    V, Nv, I = mesh[:3]
     g = scene.geom
     bits = lambda x: x.detach().cpu().contiguous().view(torch.int32)
-    return (tuple(g.vertices.shape) == V.shape and tuple(g.indices.shape) == I.shape
+    same = (tuple(g.vertices.shape) == V.shape and tuple(g.indices.shape) == I.shape
             and torch.equal(bits(g.vertices), torch.from_numpy(V).view(torch.int32))
             and torch.equal(bits(g.normals), torch.from_numpy(Nv).view(torch.int32))
             and torch.equal(g.indices.cpu().to(torch.int64),
                             torch.from_numpy(I.astype(np.int64))))
+    if same and isinstance(mesh, objfile.Mesh):
+        mats, ids = scene.materials, g.mat_ids.long()
+        lights = np.flatnonzero(mesh.light)
+        same = (torch.equal(bits(mats.diffuse[ids]), torch.from_numpy(mesh.kd).view(torch.int32))
+                and torch.equal(bits(mats.emission[ids]),
+                                torch.from_numpy(mesh.emission).view(torch.int32))
+                and torch.equal(scene.light_indices.cpu().to(torch.int64),
+                                torch.from_numpy(lights.astype(np.int64))))
+    return 0.0 if same else 1.0
 
 
 def reference_numbers(c: Cell, inputs: dict, seed: int, prog, mesh_np, units: int, device,
