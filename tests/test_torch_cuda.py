@@ -39,6 +39,9 @@ Tolerances:
   engine's per-pair Möller test and the shaders use only exactly rounded
   float32 operations and float64 transcendentals, and ``argmin`` keeps the
   first of equal distances on both devices.
+* The Cornell path frames with their bounce replayed from a CUDA graph
+  against the same frames run eagerly (spans on): bit for bit, since a
+  replay launches the eager bounce's kernels on the same inputs.
 * The direct-mode frames (analytic primitives, textured planes under
   stratified jitter, the Cornell box's area lights, the bunny through B1 in
   both modes): bit for bit, for the same reasons; Phong's power is taken
@@ -552,6 +555,41 @@ def test_cornell_frames_on_card_match_cpu(cuda, name, size):
     assert _bits_equal(accs["cpu"], accs[str(cuda)])
     assert float(accs["cpu"].max()) > 0 and bool((accs["cpu"] >= 0).all())
     assert [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in mods] == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["W8 E3 Absorption", "W8 E1 Cornell Box Balls",
+                                  "W8 E2 Cornell Box Balls", "W7 E3 Cornell Box"])
+def test_cornell_bounce_graph_replays_as_the_eager_bounce(cuda, name):
+    """Path frames on the brute-force engine replay their bounce from a CUDA
+    graph while spans are off and run it eagerly while spans are on: three
+    64x64 frames each way give the same accumulator bit for bit and the
+    same bounce and ``brute.pairs`` counts; the graph is captured on the
+    first frame only and replayed once a bounce."""
+    desc = with_fixture_model(get_scene(name))
+    desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=64, height=64))
+    scene, cfg = build_scene(desc, cuda)
+    names = ("integrator.bounce_graph_captures", "integrator.bounce_graph_replays",
+             "integrator.bounces", "brute.pairs")
+    runs = []
+    for spans in (False, True):
+        obs.enabled(spans)
+        try:
+            st = progressive.init_state(cfg, cuda)
+            seen = []
+            for _ in range(3):
+                c0 = obs.counters()
+                progressive.step(scene, cfg, st)
+                seen.append([obs.counters().get(k, 0) - c0.get(k, 0) for k in names])
+        finally:
+            obs.enabled(False)
+        runs.append((st.accum, seen))
+    (graphed, g), (eager, e) = runs
+    assert _bits_equal(graphed, eager)
+    assert float(eager.max()) > 0
+    assert [c[0] for c in g] == [1, 0, 0] and all(c[1] == c[2] > 0 for c in g)
+    assert all(c[0] == c[1] == 0 for c in e)
+    assert [c[2:] for c in g] == [c[2:] for c in e] and all(c[3] > 0 for c in e)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,11 @@
   ``host_read.*`` counter equals the reads its site made.
 * Frames (path, direct, shadowed) and a gradient step are bitwise equal
   with spans on and off.
+* On ``W8 E3 Absorption`` at 16x16 (the brute-force engine, area-light
+  NEE, the dielectric): the engine's and the shading's spans open,
+  ``brute.pairs`` equals rays times triangles over the engine's calls, and
+  the frame is bitwise equal with spans on and off; the bunny's path frame
+  and the dragon's direct frame open none of those spans.
 * Under a CPU ``torch.profiler``, spans off leave no ``tracer_torch:``
   event and spans on leave the layers' names; ``cli --profile`` writes
   them into its trace.
@@ -25,9 +30,10 @@ import pytest
 import torch
 from _share_cores import share_cores
 
-from chip_smoke import seeded_env, with_standin_mesh
+from chip_smoke import seeded_env, with_fixture_model, with_standin_mesh
 from tracer_torch import cli, obs
 from tracer_torch.accel import packet
+from tracer_torch.kernels import intersect
 from tracer_torch.diff import grad as G
 from tracer_torch.render import integrator, progressive, texture
 from tracer_torch.scenes.build import build_scene
@@ -63,6 +69,15 @@ def dragon():
     """``Project: Dragon`` on the bunny's stand-in: the flat engine."""
     return build_scene(_small(with_standin_mesh(get_scene("Project: Dragon"), "bunny.obj")),
                        "cpu")
+
+
+@pytest.fixture(scope="module")
+def cornell():
+    """``W8 E3 Absorption`` on the fixture box: 12 triangles, two spheres."""
+    return build_scene(_small(with_fixture_model(get_scene("W8 E3 Absorption"))), "cpu")
+
+
+CORNELL_SPANS = {"brute.closest", "brute.occluded", "integrator.nee", "integrator.dielectric"}
 
 
 def test_self_time_over_nested_spans(monkeypatch):
@@ -246,3 +261,58 @@ def test_cli_profile_traces_the_layers(tmp_path):
     with open(tmp_path / "prof" / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {obs.PREFIX + "progressive.step", obs.PREFIX + "packet.phase_a"} <= names
+
+
+def test_cornell_frame_opens_the_engine_and_shading_spans(cornell):
+    scene, cfg = cornell
+    obs.enabled(True)
+    _frames(scene, cfg, 1)
+    t = obs.totals()
+    assert CORNELL_SPANS <= set(t)
+    bounces = obs.counters()["integrator.bounces"]
+    # One closest-hit query, one shadow ray and one area-light sample a bounce.
+    assert t["brute.closest"].calls == t["brute.occluded"].calls == bounces
+    assert t["integrator.nee"].calls == bounces
+    # The shadow ray's query lies inside the estimate, and is not its self time.
+    assert t["integrator.nee"].total_ms > t["integrator.nee"].self_ms
+    assert t["integrator.trace_occluded"].total_ms >= t["brute.occluded"].total_ms
+
+
+def test_brute_pairs_are_rays_times_triangles(cornell, monkeypatch):
+    scene, cfg = cornell
+    pairs = []
+    for name in ("mesh_brute_force", "mesh_brute_force_anyhit"):
+        fn = getattr(intersect, name)
+
+        def spy(rays, vertices, indices, fn=fn):
+            pairs.append(rays.o.shape[0] * indices.shape[0])
+            return fn(rays, vertices, indices)
+
+        monkeypatch.setattr(intersect, name, spy)
+    _frames(scene, cfg, 2)
+    assert scene.geom.indices.shape[0] == 12
+    assert pairs and all(p == SIZE * SIZE * 12 for p in pairs)
+    assert obs.counters()["brute.pairs"] == sum(pairs)
+    assert len(pairs) == 2 * obs.counters()["integrator.bounces"]
+
+
+def test_cornell_frames_bitwise_with_spans_on_and_off(cornell):
+    scene, cfg = cornell
+    off = _frames(scene, cfg)
+    counts = obs.counters()
+    obs.reset()
+    obs.enabled(True)
+    on = _frames(scene, cfg)
+    assert torch.equal(_bits(off), _bits(on))
+    assert obs.counters() == counts
+    assert CORNELL_SPANS <= set(obs.totals())
+
+
+@pytest.mark.parametrize("kind", ["path", "direct"])
+def test_bunny_and_dragon_open_none_of_the_cornell_spans(kind, bunny, dragon):
+    scene, cfg = bunny if kind == "path" else dragon
+    obs.enabled(True)
+    _frames(scene, cfg, 1)
+    assert {"progressive.step", "integrator.shade"} <= set(obs.totals())
+    assert not CORNELL_SPANS & set(obs.totals())
+    assert "brute.pairs" not in obs.counters()

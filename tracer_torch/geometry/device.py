@@ -10,6 +10,7 @@ sharding workarounds and are not ported.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -71,6 +72,13 @@ class Planes:
     base_color: torch.Tensor  # (P, 3) f32
     textured: torch.Tensor  # (P,) i32: sample the bound texture for albedo
 
+    @cached_property
+    def shader_ids(self) -> tuple:
+        """The shader ids as host integers, read from the device once: the
+        bounce resolves them on the host, and a read per bounce would make
+        the host wait for the device."""
+        return tuple(self.shader.tolist())
+
 
 @dataclass(frozen=True)
 class AnalyticTriangles:
@@ -79,6 +87,13 @@ class AnalyticTriangles:
     verts: torch.Tensor  # (R, 3, 3) f32
     shader: torch.Tensor  # (R,) i32
     base_color: torch.Tensor  # (R, 3) f32
+
+    @cached_property
+    def shader_ids(self) -> tuple:
+        """The shader ids as host integers, read from the device once: the
+        bounce resolves them on the host, and a read per bounce would make
+        the host wait for the device."""
+        return tuple(self.shader.tolist())
 
 
 def _tri_table(verts, norms, idx, mat_ids):

@@ -129,11 +129,29 @@ def where(mask, a, b):
     return torch.where(mask[..., None], a, b)
 
 
+_CONSTS: dict = {}
+
+
+def const(value, dtype=torch.float32, device=None):
+    """A tensor of the Python number or tuple ``value``, made once per
+    (value, dtype, device) and shared by every caller, which only reads it.
+    A fresh ``torch.tensor`` on a CUDA device is a blocking copy from the
+    host (the host waits for the stream to drain), and inside a CUDA
+    graph's capture it is an error. Keyed by ``repr``, so -0.0 and 0.0 stay
+    apart; callers pass configuration constants, so the table stays
+    small."""
+    key = (repr(value), dtype, None if device is None else torch.device(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(value, dtype=dtype, device=device)
+    return t
+
+
 def div(a, c: float):
     """``a / c`` for a Python number ``c``, as a true division on every
     device: PyTorch's CUDA kernels multiply by the reciprocal when the
     divisor is a Python scalar, which can round differently from the CPU."""
-    return a / torch.tensor(c, dtype=a.dtype, device=a.device)
+    return a / const(c, a.dtype, a.device)
 
 
 def mean3(a):

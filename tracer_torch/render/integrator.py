@@ -48,6 +48,14 @@ Path mode's ``scan`` loop (the JAX package's differentiable one) is the
 ``while`` loop with optional rematerialisation of each bounce
 (``cfg.remat``): autograd records a Python loop, so it too stops once every
 lane is done, and the bounces it skips would add nothing but zeros.
+
+On the card, a path-mode bounce on the brute-force engine reads nothing
+back to the host, so ``_loop`` captures it once as a CUDA graph and
+replays it (``_BounceGraph``), with autograd and spans off: one host launch
+a bounce where the eager bounce makes several hundred, the same kernels
+on the same inputs, so the same frame bit for bit. The constants the
+bounce divides or fills by are made once (``vec.const``), since a fresh
+``torch.tensor`` on the card is a blocking copy from the host.
 """
 
 from __future__ import annotations
@@ -245,7 +253,7 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
             t, ok = intersect.sphere_t(Rays(rays.o, rays.d, rays.tmin, best.t), c,
                                        spheres.radius[i])
             pos = rays.o + t[:, None] * rays.d
-            shader = _resolve_shader(int(spheres.shader[i]), scene.uniforms)
+            shader = _resolve_shader(spheres.shader_ids[i], scene.uniforms)
             best = _update(
                 best, ok,
                 valid=yes,
@@ -269,7 +277,7 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
             pos = rays.o + t[:, None] * rays.d
             u = vec.dot(pos - p0, planes.tangent[i])
             v = vec.dot(pos - p0, planes.binormal[i])
-            shader = _resolve_shader(int(planes.shader[i]), scene.uniforms)
+            shader = _resolve_shader(planes.shader_ids[i], scene.uniforms)
             best = _update(
                 best, ok,
                 valid=yes,
@@ -289,7 +297,7 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
             v0, v1, v2 = tris.verts[i, 0], tris.verts[i, 1], tris.verts[i, 2]
             t, _, _, ok = intersect.triangle_t(Rays(rays.o, rays.d, rays.tmin, best.t),
                                                v0, v1, v2, eps_denom=TRI_EPS_DENOM)
-            shader = _resolve_shader(int(tris.shader[i]), scene.uniforms)
+            shader = _resolve_shader(tris.shader_ids[i], scene.uniforms)
             best = _update(
                 best, ok,
                 valid=yes,
@@ -450,8 +458,8 @@ def _sample_point_light_w1(pos, cfg: SceneConfig):
     quirks: ``w_i`` is the unnormalized offset to the light, and ``l_i``
     divides by ``|d|^4`` (``dist2`` is the squared distance). Returns
     (l_i, w_i, dist2)."""
-    lp = torch.tensor(cfg.point_light_pos, dtype=torch.float32, device=pos.device)
-    li = torch.tensor(cfg.point_light_intensity, dtype=torch.float32, device=pos.device)
+    lp = vec.const(tuple(cfg.point_light_pos), device=pos.device)
+    li = vec.const(tuple(cfg.point_light_intensity), device=pos.device)
     d = lp - pos
     dist2 = vec.dot(d, d)
     return li / (dist2 * dist2)[..., None], d, dist2
@@ -459,9 +467,8 @@ def _sample_point_light_w1(pos, cfg: SceneConfig):
 
 def _sample_directional(cfg: SceneConfig, n: int, device):
     """``sample_directional_light`` (w5e2.wgsl:293-304) -> (l_i, w_i, dist)."""
-    d = -vec.normalize(torch.tensor(cfg.dir_light_direction, dtype=torch.float32,
-                                    device=device))
-    li = torch.tensor(cfg.dir_light_intensity, dtype=torch.float32, device=device)
+    d = -vec.normalize(vec.const(tuple(cfg.dir_light_direction), device=device))
+    li = vec.const(tuple(cfg.dir_light_intensity), device=device)
     return (
         li.expand(n, 3),
         d.expand(n, 3),
@@ -641,7 +648,7 @@ def _shade_transmit_direct(rays, hit, cfg):
     w_t = ior[..., None] * tangent - out_normal * sq[..., None]
     new_rays = Rays(o=hit.position + w_t * cfg.eta, d=w_t,
                     tmin=_lane_fill(cfg.eta, w_t), tmax=_lane_fill(cfg.tmax, w_t))
-    err = torch.tensor(ERROR_COLOR, dtype=torch.float32, device=w_t.device)
+    err = vec.const(ERROR_COLOR, device=w_t.device)
     return vec.where(tir, err.expand(w_t.shape), 0.0), new_rays, ~tir
 
 
@@ -652,8 +659,9 @@ def _shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state):
     ray, emission gating, then a cosine-hemisphere continuation under
     Russian roulette. The draws come in the JAX package's order: the light
     slot and the two barycentric draws (the sun draws none), the roulette
-    draw, the warp's two. Returns (color, new_rays, cont, factor', emit',
-    state', converged)."""
+    draw, the warp's two. The area light's estimate (the sample, the shadow
+    ray and the contribution) runs under the span ``integrator.nee``.
+    Returns (color, new_rays, cont, factor', emit', state', converged)."""
     n_lanes = hit.t.shape[0]
     dev = hit.t.device
     brdf = vec.div(_plane_albedo(scene, cfg, hit), PI)
@@ -662,20 +670,21 @@ def _shade_lambertian_path(scene, cfg, rays, hit, factor, emit, state):
     diffuse = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
     L = 0 if scene.light_indices is None else int(scene.light_indices.shape[0])
     if "area_mc" in cfg.lights and L > 0:
-        ri, state = rng.rnd_int(state)
-        l_i, w_i, dist, state = _sample_area_light_mc(scene, hit.position, ri % L, state)
-        sray = Rays(
-            o=hit.position,
-            d=w_i,
-            tmin=torch.full((n_lanes,), cfg.eta, dtype=torch.float32, device=dev),
-            tmax=dist - cfg.eta,
-        )
-        blocked, c1 = trace_occluded(scene, cfg, sray)
-        conv = conv & c1
-        contrib = brdf * vec.saturate(vec.dot(nrm, w_i))[..., None] * l_i * float(L)
-        if cfg.diffuse_factor:
-            contrib = contrib * factor
-        diffuse = vec.where(~blocked, contrib, 0.0)
+        with obs.span("integrator.nee"):
+            ri, state = rng.rnd_int(state)
+            l_i, w_i, dist, state = _sample_area_light_mc(scene, hit.position, ri % L, state)
+            sray = Rays(
+                o=hit.position,
+                d=w_i,
+                tmin=torch.full((n_lanes,), cfg.eta, dtype=torch.float32, device=dev),
+                tmax=dist - cfg.eta,
+            )
+            blocked, c1 = trace_occluded(scene, cfg, sray)
+            conv = conv & c1
+            contrib = brdf * vec.saturate(vec.dot(nrm, w_i))[..., None] * l_i * float(L)
+            if cfg.diffuse_factor:
+                contrib = contrib * factor
+            diffuse = vec.where(~blocked, contrib, 0.0)
     elif "directional" in cfg.lights:
         # The sun: a shadow ray from the hit point, with no normal offset, to
         # just short of 999999 (w9e3.wgsl:451-477).
@@ -747,57 +756,59 @@ def _shade_transparent_path(scene, cfg, rays, hit, factor, state):
     """Path-mode dielectric (``w8e3.wgsl:527-617``): one draw picks Fresnel
     reflection, refraction or (``dielectric == "absorb"``, on exit only)
     absorption, which ends the path. ``"simple"`` and ``"fresnel"`` absorb
-    nothing. Returns (color, new_rays, cont, factor', emit', state')."""
-    n_lanes = hit.t.shape[0]
-    dev = hit.t.device
-    ones3 = torch.ones((n_lanes, 3), dtype=torch.float32, device=dev)
-    w_i = -vec.normalize(rays.d, eps=1e-24)
-    nrm = vec.normalize(hit.normal, eps=1e-24)
-    cos_raw = vec.dot(w_i, nrm)
-    entering = cos_raw < 0.0
-    cos_i = vec.abs(cos_raw)
-    ior = torch.where(entering, hit.ior, torch.reciprocal(hit.ior))
-    out_normal = vec.where(entering, -nrm, nrm)
+    nothing. Runs under the span ``integrator.dielectric``. Returns (color,
+    new_rays, cont, factor', emit', state')."""
+    with obs.span("integrator.dielectric"):
+        n_lanes = hit.t.shape[0]
+        dev = hit.t.device
+        ones3 = torch.ones((n_lanes, 3), dtype=torch.float32, device=dev)
+        w_i = -vec.normalize(rays.d, eps=1e-24)
+        nrm = vec.normalize(hit.normal, eps=1e-24)
+        cos_raw = vec.dot(w_i, nrm)
+        entering = cos_raw < 0.0
+        cos_i = vec.abs(cos_raw)
+        ior = torch.where(entering, hit.ior, torch.reciprocal(hit.ior))
+        out_normal = vec.where(entering, -nrm, nrm)
 
-    # Beer-Lambert transmittance on exit.
-    s = vec.div(vec.length(hit.position - rays.o), cfg.beer_distance_scale)
-    t_r_exit = vec.exp(-hit.extinction * s[..., None])
-    t_r = vec.where(entering, ones3, t_r_exit) if cfg.dielectric == "absorb" else ones3
-    transmission_prob = torch.where(entering, 1.0, vec.mean3(t_r))
-    if cfg.dielectric == "fresnel":
-        transmission_prob = torch.ones(n_lanes, dtype=torch.float32, device=dev)
+        # Beer-Lambert transmittance on exit.
+        s = vec.div(vec.length(hit.position - rays.o), cfg.beer_distance_scale)
+        t_r_exit = vec.exp(-hit.extinction * s[..., None])
+        t_r = vec.where(entering, ones3, t_r_exit) if cfg.dielectric == "absorb" else ones3
+        transmission_prob = torch.where(entering, 1.0, vec.mean3(t_r))
+        if cfg.dielectric == "fresnel":
+            transmission_prob = torch.ones(n_lanes, dtype=torch.float32, device=dev)
 
-    cos_t2 = 1.0 - (ior * ior) * (1.0 - cos_i * cos_i)
-    tir = cos_t2 < 0.0
-    sq = vec.sqrt(torch.clamp_min(cos_t2, 0.0))
-    refl_prob = torch.where(tir, 1.0, _fresnel_r(cos_i, sq, ior))
+        cos_t2 = 1.0 - (ior * ior) * (1.0 - cos_i * cos_i)
+        tir = cos_t2 < 0.0
+        sq = vec.sqrt(torch.clamp_min(cos_t2, 0.0))
+        refl_prob = torch.where(tir, 1.0, _fresnel_r(cos_i, sq, ior))
 
-    tangent = out_normal * cos_i[..., None] - w_i
-    w_t = ior[..., None] * tangent - out_normal * sq[..., None]
-    # Faithful quirk: the reference calls mirror() after *r was already
-    # replaced by the refraction ray (w8e3.wgsl:560-566), so the
-    # "reflection" reflects w_t about out_normal, not the incident direction.
-    refl_o = hit.position + out_normal * cfg.eta
-    refl_d = vec.reflect(w_t, out_normal)
+        tangent = out_normal * cos_i[..., None] - w_i
+        w_t = ior[..., None] * tangent - out_normal * sq[..., None]
+        # Faithful quirk: the reference calls mirror() after *r was already
+        # replaced by the refraction ray (w8e3.wgsl:560-566), so the
+        # "reflection" reflects w_t about out_normal, not the incident direction.
+        refl_o = hit.position + out_normal * cfg.eta
+        refl_d = vec.reflect(w_t, out_normal)
 
-    step, state = rng.rnd(state)
-    take_reflect = step < refl_prob
-    take_transmit = ~take_reflect & (step < refl_prob + transmission_prob)
-    # Neither: absorbed, the path ends (the hit stays recorded).
-    new_rays = Rays(
-        o=vec.where(take_reflect, refl_o, hit.position),
-        d=vec.where(take_reflect, refl_d, w_t),
-        tmin=torch.full((n_lanes,), cfg.eta, dtype=torch.float32, device=dev),
-        tmax=torch.full((n_lanes,), cfg.tmax, dtype=torch.float32, device=dev),
-    )
-    cont = take_reflect | take_transmit
-    # On transmission out of the medium the throughput picks up
-    # T_r / (refl + trans).
-    denom = torch.clamp_min(refl_prob + transmission_prob, 1e-8)
-    factor_new = vec.where(take_transmit & ~entering, factor * t_r / denom[..., None], factor)
-    color = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
-    emit_new = torch.ones(n_lanes, dtype=torch.bool, device=dev)
-    return color, new_rays, cont, factor_new, emit_new, state
+        step, state = rng.rnd(state)
+        take_reflect = step < refl_prob
+        take_transmit = ~take_reflect & (step < refl_prob + transmission_prob)
+        # Neither: absorbed, the path ends (the hit stays recorded).
+        new_rays = Rays(
+            o=vec.where(take_reflect, refl_o, hit.position),
+            d=vec.where(take_reflect, refl_d, w_t),
+            tmin=torch.full((n_lanes,), cfg.eta, dtype=torch.float32, device=dev),
+            tmax=torch.full((n_lanes,), cfg.tmax, dtype=torch.float32, device=dev),
+        )
+        cont = take_reflect | take_transmit
+        # On transmission out of the medium the throughput picks up
+        # T_r / (refl + trans).
+        denom = torch.clamp_min(refl_prob + transmission_prob, 1e-8)
+        factor_new = vec.where(take_transmit & ~entering, factor * t_r / denom[..., None], factor)
+        color = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
+        emit_new = torch.ones(n_lanes, dtype=torch.bool, device=dev)
+        return color, new_rays, cont, factor_new, emit_new, state
 
 
 def _shade_holdout(scene, cfg, rays, hit, factor, state):
@@ -818,7 +829,7 @@ def _shade_holdout(scene, cfg, rays, hit, factor, state):
     if scene.env is not None:
         env = tex.environment_map(scene.env, vec.normalize(rays.d, eps=1e-24))
     else:
-        env = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev).expand(n_lanes, 3)
+        env = vec.const(tuple(cfg.bg_color), device=dev).expand(n_lanes, 3)
     color = vec.where(blocked, 0.0, env * factor)
     return color, state, conv
 
@@ -843,7 +854,7 @@ def shade(scene, cfg, rays, hit, factor, emit, state):
         sid = hit.shader
         yes = torch.ones(n_lanes, dtype=torch.bool, device=dev)
         out = dict(
-            color=torch.tensor(ERROR_COLOR, dtype=torch.float32, device=dev).expand(n_lanes, 3),
+            color=vec.const(ERROR_COLOR, device=dev).expand(n_lanes, 3),
             rays=rays, cont=~yes, factor=factor, emit=emit, state=state, conv=yes,
         )
 
@@ -946,7 +957,7 @@ def bounce_loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0=None,
             # The loop's miss colour at throughput one (_bounce).
             bg = tex.environment_map(scene.env, vec.normalize(rays0.d, eps=1e-24))
         else:
-            bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev).expand(n, 3)
+            bg = vec.const(tuple(cfg.bg_color), device=dev).expand(n, 3)
         result = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         result = result + vec.where(miss, bg, 0.0)
         live = hit.valid
@@ -979,7 +990,7 @@ def _bounce(scene: Scene, cfg: SceneConfig, carry: tuple) -> tuple:
     if cfg.env_light and scene.env is not None:
         bg = tex.environment_map(scene.env, vec.normalize(rays.d, eps=1e-24)) * factor
     else:
-        bg = torch.tensor(cfg.bg_color, dtype=torch.float32, device=dev).expand(n, 3)
+        bg = vec.const(tuple(cfg.bg_color), device=dev).expand(n, 3)
     result = result + vec.where(miss, bg, 0.0)
     live = hit.valid & ~done
     color, new_rays, cont, factor2, emit2, state2, shade_conv = shade(
@@ -1048,19 +1059,110 @@ def _loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0,
         torch.zeros(n, dtype=torch.bool, device=dev),  # bad: traversal truncated
         state0,
     )
+    graph = _bounce_graph(scene, cfg, carry) if _graphable(scene, cfg, carry) else None
     for _ in range(cfg.max_depth):
         if not full_depth and not obs.host_read("integrator.done", (~carry[7]).any()):
             break
         obs.count("integrator.bounces")
         with obs.span("integrator.bounce"):
-            carry = body(*carry)
+            carry = graph.replay(carry) if graph is not None else body(*carry)
     return _paint_bad(carry[4], carry[8])
+
+
+def _graphable(scene: Scene, cfg: SceneConfig, carry: tuple) -> bool:
+    """Whether ``_loop`` replays its bounce from a CUDA graph: a path-mode
+    wavefront on the card whose mesh takes the brute-force engine (the
+    other engines read back to the host inside a bounce), with autograd
+    off, and with spans off, so that a traced frame still opens every span
+    inside the bounce (it then runs eagerly, bit for bit as the graph)."""
+    return (carry[0].is_cuda and not obs.SPANS and not torch.is_grad_enabled()
+            and cfg.mode == "path" and scene.geom is not None
+            and _effective_traversal(scene, cfg) == "brute")
+
+
+def _closure(scene: Scene, cfg: SceneConfig, carry: tuple) -> tuple:
+    """What a captured bounce reads besides the carry's contents: the
+    configuration, the carry's shapes, and every part of the scene but the
+    camera and the frame counter (neither enters a bounce)."""
+    u = scene.uniforms
+    parts = [getattr(scene, f.name) for f in fields(scene) if f.name not in ("camera", "uniforms")]
+    return (cfg, tuple((x.shape, x.dtype, x.device) for x in carry),
+            (u.selection1, u.selection2, u.use_texture, u.uv_scale), *parts)
+
+
+def _same(a, b) -> bool:
+    """Tensors and buffers by identity, plain values by equality."""
+    if a is b:
+        return True
+    if isinstance(a, tuple) and isinstance(b, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    plain = (int, float, str, torch.Size, torch.dtype, torch.device, SceneConfig)
+    return isinstance(a, plain) and type(a) is type(b) and a == b
+
+
+class _BounceGraph:
+    """``_bounce`` captured as a CUDA graph on fixed carry buffers. A replay
+    copies the carry in and launches the eager bounce's kernels, in the same
+    order on the same addresses, so the frame is the same bit for bit, with
+    one host launch where the eager bounce makes several hundred. The
+    counters the bounce adds to (``brute.pairs``) get what the capture
+    added, once a replay. The graph holds the scene's buffers that it reads
+    (``closure``), so their addresses stay valid while it lives."""
+
+    def __init__(self, scene: Scene, cfg: SceneConfig, carry: tuple):
+        dev = carry[0].device
+        self.closure = _closure(scene, cfg, carry)
+        self.inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=dev) for x in carry)
+        for b, x in zip(self.inputs, carry):
+            b.copy_(x)
+        # One eager bounce on a side stream first, as ``torch.cuda.graph``
+        # asks (lazy initialisation stays out of the graph), then the
+        # capture, which runs nothing on the card; neither is a bounce of
+        # the frame, so what they add to the counters is taken back.
+        c0 = obs.counters()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            _bounce(scene, cfg, self.inputs)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        c1 = obs.counters()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.graph(self.graph, stream=stream,
+                                                      capture_error_mode="thread_local"):
+            self.outputs = _bounce(scene, cfg, self.inputs)
+        self.added = {k: n - c0.get(k, 0) for k, n in c1.items() if n != c0.get(k, 0)}
+        for k, n in self.added.items():
+            obs.count(k, -2 * n)
+        obs.count("integrator.bounce_graph_captures")
+
+    def replay(self, carry: tuple) -> tuple:
+        for b, x in zip(self.inputs, carry):
+            b.copy_(x)
+        self.graph.replay()
+        obs.count("integrator.bounce_graph_replays")
+        for k, n in self.added.items():
+            obs.count(k, n)
+        return self.outputs
+
+
+_GRAPH: list = []  # the last captured bounce: one at a time
+
+
+def _bounce_graph(scene: Scene, cfg: SceneConfig, carry: tuple) -> _BounceGraph:
+    """The captured bounce of this scene, configuration and carry shape: the
+    one kept if it matches, else a new capture, which replaces it."""
+    key = _closure(scene, cfg, carry)
+    if _GRAPH and _same(_GRAPH[0].closure, key):
+        return _GRAPH[0]
+    _GRAPH.clear()
+    _GRAPH.append(_BounceGraph(scene, cfg, carry))
+    return _GRAPH[0]
 
 
 def _paint_bad(result, bad):
     """Truncated-traversal lanes render the magenta error sentinel: a
     clipped image is visibly wrong, never silently plausible."""
-    err = torch.tensor(ERROR_COLOR, dtype=torch.float32, device=result.device)
+    err = vec.const(ERROR_COLOR, device=result.device)
     return vec.where(bad, err.expand(result.shape), result)
 
 

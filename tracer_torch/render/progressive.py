@@ -42,8 +42,8 @@ def init_state(cfg: SceneConfig, device) -> ProgressiveState:
 
 def step(scene: Scene, cfg: SceneConfig, state: ProgressiveState) -> ProgressiveState:
     """One progressive frame = one sample pass + accumulation, with the
-    accumulator updated in place. Returns ``state``."""
-    with obs.span("progressive.step"):
+    accumulator updated in place, autograd off. Returns ``state``."""
+    with obs.span("progressive.step"), torch.no_grad():
         scene = integrator.with_iteration(scene, state.iteration)
         result, seed_t = integrator.render_sample_seeded(scene, cfg, state.seed_t)
         integrator.accumulate(result, state.accum, state.iteration)

@@ -13,6 +13,7 @@ leaf that gradients reach, as in the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Optional
 
 import torch
@@ -41,6 +42,13 @@ class Spheres:
     base_color: torch.Tensor  # (S, 3) f32
     ior: torch.Tensor  # (S,) f32: ior1_over_ior2 assigned at hit
     extinction: torch.Tensor  # (S, 3) f32: Beer-Lambert rho_t
+
+    @cached_property
+    def shader_ids(self) -> tuple:
+        """The shader ids as host integers, read from the device once: the
+        bounce resolves them on the host, and a read per bounce would make
+        the host wait for the device."""
+        return tuple(self.shader.tolist())
 
 
 @dataclass(frozen=True)
