@@ -250,6 +250,7 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -1104,6 +1105,147 @@ def b3_bound(args, tests: int) -> tuple[float, str]:
     return bound_ms(n_bytes, tests * OPS_PER_TEST)
 
 
+# Float32 operations of one ray's slab test against one child box in packet
+# phase A's walk: 6 differences, 6 products, 3 minima and 3 maxima, the 2 + 2
+# folds over the axes and 3 comparisons.
+OPS_PER_SLAB = 25
+WALK_FIELDS = ("cur", "level", "asc", "done", "paused", "snear", "sref")
+
+
+def walk_buffers(wk) -> list:
+    """What phase A's walk iterations write in the buffers ``wk`` (a
+    ``packet._Walk``): the state in ``WALK_FIELDS``' order, then eids,
+    enear and en."""
+    return [*(getattr(wk.st, f) for f in WALK_FIELDS), wk.eids, wk.enear, wk.en]
+
+
+def walk_twin(wk):
+    """The walk buffers ``wk`` with a state and emissions of their own (the
+    inputs shared), for ``packet._body`` beside the walk kernel."""
+    from tracer_torch.accel import packet
+
+    twin = copy.copy(wk)
+    twin.st = packet.TravState(**{f: getattr(wk.st, f).clone() for f in WALK_FIELDS})
+    twin.eids, twin.enear, twin.en = wk.eids.clone(), wk.enear.clone(), wk.en.clone()
+    return twin
+
+
+def restore_walk(wk, saved) -> None:
+    for x, y in zip(walk_buffers(wk), walk_buffers(saved)):
+        x.copy_(y)
+
+
+def first_bounce_walk(scene, cfg):
+    """Packet phase A's walk buffers of ``scene``'s tree (the cached ones,
+    with their graph) loaded as ``packet._phase_a_chunk`` loads them for the
+    first round of a closest-hit query of the frame's path-mode camera rays
+    in 8x16 packets; and a copy of the loaded state to start again from."""
+    from tracer_torch.accel import packet
+    from tracer_torch.render import integrator
+
+    rays, _ = integrator._path_primary(scene, cfg)
+    tile = lambda x, fill: packet.to_tiles(x, cfg.width, cfg.height, fill)
+    o, d, tmin, tmax = (tile(rays.o, 1.0e30), tile(rays.d, 1.0), tile(rays.tmin, 1.0),
+                        tile(rays.tmax, 0.0))
+    C, D = o.shape[0], max(scene.tb.depth, 1)
+    if C > packet.CHUNK_TILES:
+        raise AssertionError(f"the first-bounce wavefront is {C} tiles, over one chunk")
+    wk = packet._walk(scene.tb, C, D, packet.K_EMIT, o.device)
+    wk.load(packet._init_state(C, D, o.device), o, d, tmin, tmax)
+    return wk, walk_twin(wk)
+
+
+def check_walk_kernel(wk, saved) -> tuple[int, dict]:
+    """From ``saved``, launches of the walk kernel for ``CHECK_EVERY``
+    iterations against as many ``packet._body`` calls on a copy of the
+    buffers, until every tile is done or paused: every buffer bit for bit
+    after each launch. Returns the launches and, over the first launch's
+    iterations, what ``walk_bound`` counts: ``visits`` of tiles (active,
+    not ascending), the distinct top-tree rows they visit (``top_rows``),
+    the distinct (tile, level) rows of the sibling stacks that active
+    tiles read or write (``stack_rows``), and the emissions written
+    (``emitted``)."""
+    from tracer_torch.accel import packet
+    from tracer_torch.kernels import phase_a_walk
+
+    names = [*WALK_FIELDS, "eids", "enear", "en"]
+    restore_walk(wk, saved)
+    launches, first = 0, {}
+    while bool((~wk.st.done & ~wk.st.paused).any()):
+        twin = walk_twin(wk)
+        top_rows, stack_rows, visits = set(), set(), 0
+        for _ in range(packet.CHECK_EVERY):
+            st = twin.st
+            active = ~st.done & ~st.paused
+            visit = active & ~st.asc
+            visits += int(visit.sum())
+            top_rows.update(st.cur[visit].tolist())
+            tiles = active.nonzero()[:, 0]
+            stack_rows.update(zip(tiles.tolist(),
+                                  st.level[tiles].clamp(0, wk.D - 1).tolist()))
+            packet._body(twin)
+        if not launches:
+            emitted = int((twin.en.clamp(max=wk.K) - wk.en.clamp(max=wk.K)).sum())
+            first = dict(visits=visits, top_rows=len(top_rows), stack_rows=len(stack_rows),
+                         emitted=emitted)
+        phase_a_walk.walk(wk, packet.CHECK_EVERY)
+        for name, a, b in zip(names, walk_buffers(wk), walk_buffers(twin)):
+            bits = (lambda x: x.view(torch.int32)) if a.dtype == torch.float32 else (lambda x: x)
+            if not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"walk kernel launch {launches}: {name} differs from "
+                                     f"_body's in {int((bits(a) != bits(b)).sum())} places")
+        launches += 1
+    return launches, first
+
+
+def time_walk(wk, saved, reps: int = 50) -> tuple[float, float, float]:
+    """Device ms of one batch of ``CHECK_EVERY`` walk iterations from
+    ``saved``: the kernel launched directly, the same launch replayed from
+    the walk's graph, and ``_body`` run eagerly. Each batch starts from a
+    restored state behind a ``torch.cuda._sleep``, so its events time the
+    device alone where the host enqueues faster than the card runs."""
+    from tracer_torch.accel import packet
+    from tracer_torch.kernels import phase_a_walk
+
+    def timed(fn, n):
+        spans = []
+        for _ in range(n):
+            restore_walk(wk, saved)
+            torch.cuda._sleep(1_000_000)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            spans.append((start, end))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in spans) / n
+
+    def body():
+        for _ in range(packet.CHECK_EVERY):
+            packet._body(wk)
+
+    kernel = timed(lambda: phase_a_walk.walk(wk, packet.CHECK_EVERY), reps)
+    return kernel, timed(wk.graph.replay, reps), timed(body, 5)
+
+
+def walk_bound(wk, work: dict) -> tuple[float, str]:
+    """The walk kernel on one chunk, over ``work`` (``check_walk_kernel``'s
+    count of one launch): o, 1/d, tmin and prune of each ray and the
+    tiles' loosest bounds read once, the tiles' state read and written
+    once, each top-tree row visited (8 boxes and 8 refs) and each
+    sibling-stack row touched (8 nears and 8 refs) moved once, each
+    emission (an id and a near) written once; ``OPS_PER_SLAB`` x 8
+    children x 128 rays per visit (a tile that visits a node in an
+    iteration)."""
+    st = wk.st
+    n_bytes = (nbytes(wk.o, wk.inv_d, wk.tmin, wk.prune, wk.amax)
+               + 2 * nbytes(st.cur, st.level, st.asc, st.done, st.paused, wk.en)
+               + work["top_rows"] * nbytes(wk.top[0], wk.top_ref[0])
+               + work["stack_rows"] * nbytes(st.snear[0, 0], st.sref[0, 0])
+               + work["emitted"] * (wk.eids.element_size() + wk.enear.element_size()))
+    return bound_ms(n_bytes, OPS_PER_SLAB * 8 * 128 * work["visits"])
+
+
 def occlusion_bound(tb, em, max_rounds: int, tests: int) -> tuple[float, str]:
     """The any-hit query on one wavefront's emissions: every input read
     once (the quarter blocks and boxes that a gated list slot names and,
@@ -1386,7 +1528,10 @@ def cornell_instrumented(scene, cfg, state) -> dict:
     trace), shadow rays with a non-empty window, truncated lanes, and the
     brute-force engine's calls, with the arguments of the closest-hit and
     the any-hit call of bounce 2. The spies read the device, so this frame
-    is not a timed one."""
+    is not a timed one. Spans are on for it, so a path bounce on the
+    brute-force engine runs eagerly (bit for bit as its CUDA graph, which
+    would run past the spies)."""
+    from tracer_torch import obs
     from tracer_torch.kernels import intersect
     from tracer_torch.render import integrator, progressive
 
@@ -1418,6 +1563,8 @@ def cornell_instrumented(scene, cfg, state) -> dict:
     (integrator.trace_closest, integrator.trace_occluded, integrator._paint_bad,
      intersect.mesh_brute_force, intersect.mesh_brute_force_anyhit) = (
         trace, occluded, paint, spy(orig[3], "closest"), spy(orig[4], "any-hit"))
+    spans = obs.SPANS
+    obs.enabled(True)
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1425,6 +1572,7 @@ def cornell_instrumented(scene, cfg, state) -> dict:
         torch.cuda.synchronize()
         rec["frame_host_ms"] = (time.perf_counter() - t) * 1e3
     finally:
+        obs.enabled(spans)
         (integrator.trace_closest, integrator.trace_occluded, integrator._paint_bad,
          intersect.mesh_brute_force, intersect.mesh_brute_force_anyhit) = orig
     return rec
@@ -2776,11 +2924,12 @@ def main() -> int:
         f"python {sys.version.split()[0]}, {torch.cuda.device_count()} device(s)")
 
     import tracer_torch
-    from tracer_torch import convert
-    from tracer_torch.accel import flat
+    from tracer_torch import convert, obs
+    from tracer_torch.accel import flat, packet
     from tracer_torch.diff import grad as G
     from tracer_torch.geometry.device import refresh_tri_table
-    from tracer_torch.kernels import scatter_vn, super_hits, super_occluded, treelet_hits
+    from tracer_torch.kernels import (phase_a_walk, scatter_vn, super_hits, super_occluded,
+                                      treelet_hits)
     from tracer_torch.render import integrator, progressive
     from tracer_torch.scenes.build import build_scene
     from tracer_torch.scenes.registry import get_scene
@@ -2791,15 +2940,17 @@ def main() -> int:
     def reset_counts():
         for mod in kernels:
             mod.KERNEL_LAUNCHES = mod.REFERENCE_CALLS = 0
+        phase_a_walk.KERNEL_LAUNCHES = 0
 
     # 2. Build: one nvcc per source, all started together.
     def timed_build(mod):
         t = time.perf_counter()
         return mod.build()[1], time.perf_counter() - t
 
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        builds = list(pool.map(timed_build, kernels))
-    for mod, (build_log, secs) in zip(kernels, builds):
+    built = (*kernels, phase_a_walk)
+    with ThreadPoolExecutor(len(built)) as pool:
+        builds = list(pool.map(timed_build, built))
+    for mod, (build_log, secs) in zip(built, builds):
         log(f"[build] {mod.SOURCE.name} -> sm_90a in {secs:.2f} s")
         for line in build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -3074,18 +3225,24 @@ def main() -> int:
         raise AssertionError("the W9 E1 frame is not at full size")
     pstate = progressive.init_state(pcfg, dev)
 
-    # 6a. Main path: 1 warm-up + 10 timed frames, every one through B3.
+    # 6a. Main path: 1 warm-up + 10 timed frames, every one through B3, and
+    # every walk iteration of the timed ones in phase A's walk kernel.
     reset_counts()
     per_frame = []
     progressive.step(pscene, pcfg, pstate)
     torch.cuda.synchronize()
     per_frame.append(treelet_hits.KERNEL_LAUNCHES)
     frames = 10
+    walk_names = ("packet.phase_a_graph_replays", "packet.phase_a_iterations",
+                  "packet.phase_a_kernel_iterations")
+    phase_a_walk.KERNEL_LAUNCHES = 0
+    walk_counts = [[obs.counters().get(k, 0) for k in walk_names]]
     t0 = time.perf_counter()
     start.record()
     for _ in range(frames):
         progressive.step(pscene, pcfg, pstate)
         per_frame.append(treelet_hits.KERNEL_LAUNCHES)
+        walk_counts.append([obs.counters().get(k, 0) for k in walk_names])
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3095,12 +3252,21 @@ def main() -> int:
     if min(np.diff([0] + per_frame)) < 1 or p_ref != 0:
         raise AssertionError(f"a path frame did not run on B3 alone (launches {per_frame}, "
                              f"twin calls {p_ref})")
+    walk_replays, walk_iters, walk_kernel_iters = np.diff(walk_counts, axis=0).T.tolist()
+    walk_direct = phase_a_walk.KERNEL_LAUNCHES
+    if min(walk_replays) < 1 or walk_kernel_iters != walk_iters or walk_direct:
+        raise AssertionError(f"a path frame's walk did not run in phase A's walk kernel "
+                             f"(graph replays {walk_replays}, iterations {walk_iters}, in the "
+                             f"kernel {walk_kernel_iters}, direct launches {walk_direct})")
     p_ms = start.elapsed_time(end) / frames
     log(f"[path] {frames} frames: {p_ms:.3f} ms/frame (CUDA events), "
         f"{wall / frames * 1e3:.3f} ms/frame (host clock), primary "
         f"{pcfg.width * pcfg.height / (p_ms * 1e3):.3f} Mpath/s; {card}")
     log(f"[path] B3 launches {p_launches} over {frames + 1} frames (cumulative {per_frame}), "
         f"twin calls {p_ref}")
+    log(f"[path] phase A walk kernel over the {frames} timed frames: graph replays "
+        f"{walk_replays}, walk iterations {walk_iters}, of them in the kernel "
+        f"{walk_kernel_iters}, direct launches {walk_direct}")
 
     # 6b. One more frame with spies on the layers (not timed above).
     rec = instrumented_step(pscene, pcfg, pstate)
@@ -3149,7 +3315,15 @@ def main() -> int:
         f"{frame_st['live_tests'] / max(frame_st['visits'] * 128 * tb_r.T, 1):.2%}, "
         f"{frame_st['idle_visits']} with no live lane")
 
-    # 6d. The same frame under the profiler.
+    # 6d. Packet phase A's walk kernel against _body over the first round
+    # of the frame's first-bounce chunk.
+    walk_wk, walk_saved = first_bounce_walk(pscene, pcfg)
+    walk_launches, walk_work = check_walk_kernel(walk_wk, walk_saved)
+    log(f"[kernel vs twin] phase A walk W9 E1 first bounce: {walk_wk.o.shape[0]} tiles, "
+        f"{walk_launches} launches of {packet.CHECK_EVERY} iterations to the first round's "
+        f"end, in the first {walk_work}; every buffer equal to _body's bitwise")
+
+    # 6e. The same frame under the profiler.
     prof = profile_step(lambda: progressive.step(pscene, pcfg, pstate),
                         {"b3_ms": "treelet_hits_kernel"})
     if prof:
@@ -3159,7 +3333,7 @@ def main() -> int:
     else:
         log("[path] the profiler recorded no device time")
 
-    # 6e. A 32x32 frame against the JAX package's numbers.
+    # 6f. A 32x32 frame against the JAX package's numbers.
     sdesc = dataclasses.replace(pdesc, cfg=dataclasses.replace(pdesc.cfg, width=32, height=32))
     sscene, scfg = build_scene(sdesc, dev)
     sst = progressive.render_progressive(with_seeded_env(sscene, sdesc, dev), scfg, 2)
@@ -3169,7 +3343,7 @@ def main() -> int:
     if bad:
         raise AssertionError("the 32x32 path frame disagrees with the JAX package: " + "; ".join(bad))
 
-    # 6f. W9 E2 Bunny (the holdout plane's occlusion probe): 1 + 3 frames.
+    # 6g. W9 E2 Bunny (the holdout plane's occlusion probe): 1 + 3 frames.
     edesc = get_scene("W9 E2 Bunny")
     escene, ecfg = build_scene(edesc, dev)
     escene = with_seeded_env(escene, edesc, dev)
@@ -3266,6 +3440,13 @@ def main() -> int:
         f"T live Moller tests/s), bound over all lanes {b3_all_ms:.4f} ms ({b3_all_by}; "
         f"{b3_stats['visits']} tile x block visits x 128 x {tb_r.T}); {card}")
 
+    walk_ms, walk_replay_ms, walk_plain_ms = time_walk(walk_wk, walk_saved)
+    walk_bound_ms, walk_by = walk_bound(walk_wk, walk_work)
+    log(f"[time] phase A walk W9 E1 first-bounce chunk ({walk_wk.o.shape[0]} tiles, "
+        f"{packet.CHECK_EVERY} iterations from the root): kernel {walk_ms:.4f} ms per launch, "
+        f"replayed from its graph {walk_replay_ms:.4f} ms, _body eager {walk_plain_ms:.3f} ms, "
+        f"bound {walk_bound_ms:.4f} ms ({walk_by}; {walk_work}); {card}")
+
     # 8. Path mode in the Cornell box (the brute-force engine; no hand kernel).
     cornell_phase(dev, card, kernels)
 
@@ -3358,6 +3539,24 @@ def main() -> int:
         "bound_ms": b3_bound_ms,
         "bound_by": b3_by,
         "bound_all_lanes_ms": b3_all_ms,
+        "library_ms": None,
+    }, {
+        "name": "phase_a_walk.walk",
+        "route": "cuda",
+        "source": "tracer_torch/csrc/phase_a_walk.cu",
+        "replaces": "none (phase A is XLA in the JAX package, tracer/accel/packet.py)",
+        "launches": sum(walk_replays) + walk_direct,
+        "main_path_frames": frames,
+        "graph_replays_per_frame": walk_replays,
+        "iterations_per_frame": walk_iters,
+        "kernel_iterations_per_frame": walk_kernel_iters,
+        "direct_launches": walk_direct,
+        "max_abs_err": 0.0,
+        "ms": walk_ms,
+        "replay_ms": walk_replay_ms,
+        "plain_ms": walk_plain_ms,
+        "bound_ms": walk_bound_ms,
+        "bound_by": walk_by,
         "library_ms": None,
     }, {
         "name": "super_occluded.occluded",

@@ -1,6 +1,6 @@
 """Tests that need the card: the CUDA kernels (super-tile hits B1, B1's
 any-hit query ``super_occluded``, vertex-cotangent placement B2, treelet
-hits B3) against their plain-PyTorch twins,
+hits B3, packet phase A's walk) against their plain-PyTorch twins,
 and the ported frame, gradient steps and path-mode frames on the card
 against the same on the CPU. They skip where PyTorch sees no CUDA device.
 
@@ -31,6 +31,13 @@ Tolerances:
 * B2: bit for bit against its twin run on a CPU copy (both sum in the
   same fixed order: stream order within each chunk of ``CHUNK_ROWS`` rows,
   then the chunks' partials in chunk order) and between two launches.
+* Packet phase A's walk kernel: every call's state and emissions bit for
+  bit against ``_body`` on a copy of the same buffers, and whole queries
+  through it bit for bit against the same queries through ``_body``: both
+  perform the same exactly rounded float32 operations, NaN-propagating
+  min and max, and argmin's lowest slot on ties. A replay counts the
+  iterations its capture recorded in the kernel, so a graph of ``_body``
+  counts none.
 * B3 and the path-mode frames: bit for bit. B3 shares B1's Möller test
   (``csrc/moller.cuh``); the warps and the environment lookup take their
   transcendentals in float64 and round them (``math/vec.py``), so the card
@@ -64,22 +71,23 @@ Tolerances:
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FIXTURES, OCCLUSION_CASES, brute_case, lane_tiles, narrow_quarters,
-                        occlusion_case, scatter_streams, seeded_texture, sun_desc, super_lanes,
-                        synthetic, synthetic_tiles, with_fixture_model, with_seeded_env,
-                        with_standin_mesh)
+from chip_smoke import (FIXTURES, OCCLUSION_CASES, WALK_FIELDS, brute_case, lane_tiles,
+                        narrow_quarters, occlusion_case, scatter_streams, seeded_texture, sun_desc,
+                        super_lanes, synthetic, synthetic_tiles, walk_buffers, walk_twin,
+                        with_fixture_model, with_seeded_env, with_standin_mesh)
 from tracer_torch import convert, obs
 from tracer_torch.accel import flat, lbvh, packet, treelet
 from tracer_torch.diff import grad as G
 from tracer_torch.geometry.procedural import bumpy_blob
-from tracer_torch.kernels import (intersect, scatter_vn, super_hits, super_occluded,
-                                  treelet_hits)
+from tracer_torch.kernels import (intersect, phase_a_walk, scatter_vn, super_hits,
+                                  super_occluded, treelet_hits)
 from tracer_torch.kernels.intersect import Rays, make_rays
 from tracer_torch.render import integrator, progressive
 from tracer_torch.render import texture as tex
@@ -517,6 +525,183 @@ def test_phase_a_graph_walks_as_the_eager_loop(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert [c[0] for c in seen] == [1, 0, 0] and len(scene.tb.walks) == 2
     assert all(c[1] > 0 and c[1] * packet.CHECK_EVERY == c[2] for c in seen)
+
+
+def _edge_rays(tb, device, rows: int = 8):
+    """Rays on the top tree's own child boxes (the first ``rows`` rows):
+    axis-parallel rays whose origins lie on a slab plane of the box (0 x inf
+    = NaN slabs), and rays from the centres of its x faces into it (a near
+    of -0 on the hi face, so ``clamp_min`` meets a signed zero)."""
+    top = tb.top.cpu().numpy()
+    o, d = [], []
+    for r in range(min(rows, top.shape[0])):
+        for j in range(8):
+            lo, hi = top[r, j, 0:3], top[r, j, 3:6]
+            if not (lo < hi).all():
+                continue  # an empty slot
+            c = (lo + hi) * np.float32(0.5)
+            o += [[lo[0], c[1], c[2]], [c[0], hi[1], c[2]], [c[0], c[1], lo[2]],
+                  [hi[0], c[1], c[2]], [lo[0], c[1], c[2]]]
+            d += [[0.0, 0.0, 1.0], [1.0, 0.0, 0.0], [0.0, -1.0, 0.0],
+                  [-0.96, 0.25, -0.125], [0.96, -0.25, 0.125]]
+    o, d = np.asarray(o, np.float32), np.asarray(d, np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(o, device=device), torch.as_tensor(d, device=device),
+            torch.zeros(len(o), device=device))
+
+
+@pytest.fixture(scope="module")
+def walk_case():
+    """W9 E1's first-bounce wavefront at 50x40 after ``_edge_rays``: 19
+    tiles, the last one padded with dead rays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    desc = get_scene("W9 E1 Bunny")
+    desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=50, height=40))
+    scene, cfg = build_scene(desc, dev)
+    rays, _ = integrator._path_primary(scene, cfg)
+    eo, ed, et = _edge_rays(scene.tb, dev)
+    rays = Rays(torch.cat([eo, rays.o]), torch.cat([ed, rays.d]), torch.cat([et, rays.tmin]),
+                torch.cat([torch.full_like(et, 5000.0), rays.tmax]))
+    assert rays.o.shape[0] % packet.TILE and -(-rays.o.shape[0] // packet.TILE) == 19
+    return scene.tb, rays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("chunk", [packet.CHUNK_TILES, 3], ids=["one_chunk", "chunks_of_3"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "anyhit"])
+def test_phase_a_walk_kernel_matches_body(walk_case, monkeypatch, any_hit, chunk, K, n):
+    """Every launch of the phase A walk kernel (``n`` iterations; no graph)
+    in a whole query on ``walk_case``, against ``n`` calls of ``_body`` on a
+    copy of the same buffers: cur, level, asc, done, paused, snear, sref,
+    eids, enear and en bit for bit; any-hit rounds after the first prune
+    occluded lanes at -3e38. Zero nears (the rays from box faces) are met,
+    and at ``K_EMIT`` = 16 tiles pause for several rounds."""
+    tb, rays = walk_case
+    tb = dataclasses.replace(tb)  # a walk table of its own
+    direct = packet._iterate
+    calls, zeros = [], []
+
+    def checked(wk, m):
+        twin = walk_twin(wk)
+        for _ in range(m):
+            packet._body(twin)
+        launches = phase_a_walk.KERNEL_LAUNCHES
+        direct(wk, m)
+        assert phase_a_walk.KERNEL_LAUNCHES == launches + 1
+        differ = [name for name, a, b in zip([*WALK_FIELDS, "eids", "enear", "en"],
+                                             walk_buffers(wk), walk_buffers(twin))
+                  if not _bits_equal(a, b)]
+        assert not differ, f"call {len(calls)}: {differ} differ from _body's"
+        calls.append(m)
+        zeros.append(bool((wk.enear == 0).any() | (wk.st.snear == 0).any()))
+
+    rounds = []
+    dispatch = packet._dispatch_hits
+    monkeypatch.setattr(packet, "_iterate", checked)
+    monkeypatch.setattr(packet._Walk, "_capture", lambda self, dev: None)
+    monkeypatch.setattr(packet, "CHECK_EVERY", n)
+    monkeypatch.setattr(packet, "K_EMIT", K)
+    monkeypatch.setattr(packet, "CHUNK_TILES", chunk)
+    monkeypatch.setattr(packet, "_dispatch_hits", lambda *a: rounds.append(a[3]) or dispatch(*a))
+    _, bp, conv = packet._run(rays, tb, None, any_hit)
+    assert calls and set(calls) == {n} and any(zeros)
+    assert bool(conv.all()) and int(((bp > 0) if any_hit else (bp >= 0)).sum()) > 50
+    if K == 16:
+        assert len(rounds) > 1 and int(rounds[0].max()) > 16 - 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "anyhit"])
+def test_packet_queries_through_the_walk_kernel_equal_body(cuda, monkeypatch, any_hit):
+    """W9 E1's first-bounce wavefront at 128x128 (one frame of 8x16
+    packets) through the packet query, once with phase A's graph of one
+    walk kernel launch and once with the walk's dispatch sent to ``_body``
+    (no graph, no kernel): bt, bp and conv bit for bit; every walk
+    iteration of the first ran in the kernel."""
+    desc = get_scene("W9 E1 Bunny")
+    desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=128, height=128))
+    scene, cfg = build_scene(desc, cuda)
+    rays, _ = integrator._path_primary(scene, cfg)
+    names = ("packet.phase_a_iterations", "packet.phase_a_kernel_iterations",
+             "packet.phase_a_graph_replays")
+    c0 = obs.counters()
+    got = packet._run(rays, scene.tb, (128, 128), any_hit)
+    iters, kernel_iters, replays = (obs.counters().get(k, 0) - c0.get(k, 0) for k in names)
+    assert iters > 0 and kernel_iters == iters and replays > 0
+    with monkeypatch.context() as m:
+        m.setattr(packet._Walk, "_capture", lambda self, dev: None)
+        m.setattr(packet, "_iterate", lambda wk, n: [packet._body(wk) for _ in range(n)])
+        launches = phase_a_walk.KERNEL_LAUNCHES
+        want = packet._run(rays, dataclasses.replace(scene.tb), (128, 128), any_hit)
+        assert phase_a_walk.KERNEL_LAUNCHES == launches
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+    assert bool(got[2].all()) and int((got[1] > 0 if any_hit else got[1] >= 0).sum()) > 100
+
+
+@pytest.mark.cuda
+def test_phase_a_kernel_iterations_count_what_the_graph_holds(walk_case, monkeypatch):
+    """A replay of phase A's graph adds to ``packet.phase_a_kernel_iterations``
+    the iterations its capture recorded in the walk kernel: ``CHECK_EVERY``
+    for the graph of one launch (recorded, not counted as a launch that
+    ran; only the warm-up launch before it is), so on a whole query it
+    equals ``packet.phase_a_iterations``. A graph captured around
+    ``_body`` in the kernel's place walks the same query with the same
+    replays and adds none."""
+    tb, rays = walk_case
+    names = ("packet.phase_a_iterations", "packet.phase_a_kernel_iterations",
+             "packet.phase_a_graph_replays")
+
+    def run(tb):
+        c0, launches = obs.counters(), phase_a_walk.KERNEL_LAUNCHES
+        got = packet._run(rays, tb, None, False)
+        counts = [obs.counters().get(k, 0) - c0.get(k, 0) for k in names]
+        return got, counts, phase_a_walk.KERNEL_LAUNCHES - launches
+
+    kernel_tb = dataclasses.replace(tb)
+    got, (iters, kernel_iters, replays), launches = run(kernel_tb)
+    assert iters > 0 and replays * packet.CHECK_EVERY == iters and kernel_iters == iters
+    assert [w.graph_kernel_iterations for w in kernel_tb.walks.values()] \
+        == [packet.CHECK_EVERY] * len(kernel_tb.walks) and launches == len(kernel_tb.walks)
+
+    def body_walk(wk, n):
+        for _ in range(n):
+            packet._body(wk)
+
+    monkeypatch.setattr(phase_a_walk, "walk", body_walk)
+    body_tb = dataclasses.replace(tb)
+    want, counts, launches = run(body_tb)
+    assert counts == [iters, 0, replays] and launches == 0
+    assert all(w.graph is not None and w.graph_kernel_iterations == 0
+               for w in body_tb.walks.values())
+    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_phase_a_walk_kernel_rejects_what_it_cannot_take(walk_case, monkeypatch):
+    tb, _ = walk_case
+    dev, D = tb.top.device, max(tb.depth, 1)
+    monkeypatch.setattr(packet._Walk, "_capture", lambda self, dev: None)
+    wk = packet._Walk(dataclasses.replace(tb), 8, D, 16, dev)
+    phase_a_walk.walk(wk, 1)  # takes what it should
+    bad = {"o": wk.o.double(), "inv_d": wk.inv_d.transpose(0, 1).contiguous().transpose(0, 1),
+           "en": wk.en.int(), "eids": wk.eids[:, :8].contiguous(), "amax": wk.amax.cpu()}
+    for name, x in bad.items():
+        odd = copy.copy(wk)
+        setattr(odd, name, x)
+        with pytest.raises(ValueError):
+            phase_a_walk.walk(odd, 4)
+    for K in (4, 16):
+        small = packet._Walk(dataclasses.replace(tb), 8, D, K, dev)
+        with monkeypatch.context() as m:
+            m.setattr(packet, "CHUNK_TILES", 4)
+            with pytest.raises(ValueError):
+                phase_a_walk.walk(small, 4)
+    with pytest.raises(ValueError):
+        phase_a_walk.walk(wk, 0)
 
 
 @pytest.mark.cuda

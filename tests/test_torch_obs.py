@@ -7,6 +7,8 @@
 * On ``W9 E1 Bunny`` at 16x16 (path mode, the packet engine, the bounce
   loop): ``integrator.bounces`` equals the loop's bounces, and each
   ``host_read.*`` counter equals the reads its site made.
+* ``packet.phase_a_kernel_iterations`` equals ``packet.phase_a_iterations``
+  on the card and is absent on the CPU (the card's case skips here).
 * Frames (path, direct, shadowed) and a gradient step are bitwise equal
   with spans on and off.
 * On ``W8 E3 Absorption`` at 16x16 (the brute-force engine, area-light
@@ -30,7 +32,7 @@ import pytest
 import torch
 from _share_cores import share_cores
 
-from chip_smoke import seeded_env, with_fixture_model, with_standin_mesh
+from chip_smoke import seeded_env, with_fixture_model, with_seeded_env, with_standin_mesh
 from tracer_torch import cli, obs
 from tracer_torch.accel import packet
 from tracer_torch.kernels import intersect
@@ -182,6 +184,30 @@ def test_counters_equal_the_bounces_and_reads_made(bunny, monkeypatch):
     assert c["host_read.packet.rounds"] == len(rounds)
     assert set(c) == {"integrator.bounces", "host_read.integrator.done", "host_read.packet.walk",
                       "host_read.packet.rounds", "packet.phase_a_iterations"}
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_phase_a_kernel_iterations_count_on_the_card_only(device, bunny):
+    """``packet.phase_a_kernel_iterations`` counts the walk iterations that
+    ran in the walk kernel, replayed from phase A's graph or launched
+    directly: on the card every one of ``packet.phase_a_iterations``; on
+    the CPU, which walks with ``_body``, it is absent."""
+    scene, cfg = bunny
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device (the walk kernel has no CPU mode)")
+        desc = _small(get_scene("W9 E1 Bunny"))
+        scene, cfg = build_scene(desc, device)
+        scene = with_seeded_env(scene, desc, device)
+    st = progressive.init_state(cfg, device)
+    for _ in range(2):
+        progressive.step(scene, cfg, st)
+    c = obs.counters()
+    assert c["packet.phase_a_iterations"] > 0
+    if device == "cpu":
+        assert "packet.phase_a_kernel_iterations" not in c
+    else:
+        assert c["packet.phase_a_kernel_iterations"] == c["packet.phase_a_iterations"]
 
 
 def _frames(scene, cfg, n: int = 2):

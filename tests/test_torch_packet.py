@@ -39,7 +39,9 @@ from tracer.kernels.intersect import make_rays as jax_make_rays
 from tracer.kernels.intersect import mesh_brute_force, mesh_brute_force_anyhit
 
 from tracer_torch import convert
+from tracer_torch import obs
 from tracer_torch.accel import packet
+from tracer_torch.kernels import phase_a_walk
 from tracer_torch.kernels.intersect import make_rays
 
 share_cores()
@@ -287,6 +289,61 @@ def test_in_place_walk_matches_the_rebinding_walk_and_jax(blob, monkeypatch, any
         for x, y in zip([*out, *after.values()],
                         [*jout, *(getattr(jafter, f) for f in STATE)]):
             assert torch.equal(_bits(x), _bits(y))
+
+
+def test_walk_kernel_takes_cuda_tensors_only_and_the_cpu_runs_body(blob, monkeypatch):
+    """On the CPU the walk's dispatch runs ``_body`` and counts no kernel
+    iterations; the kernel's wrapper refuses CPU buffers, and buffers it
+    cannot take, before it builds anything."""
+    _, _, tb = blob
+    D, cpu = max(tb.depth, 1), torch.device("cpu")
+    wk = packet._Walk(dataclasses.replace(tb), 4, D, 16, cpu)
+    assert wk.graph is None
+    body = []
+    monkeypatch.setattr(packet, "_body", lambda w: body.append(w))
+    monkeypatch.setattr(phase_a_walk, "build", lambda: pytest.fail("built on the CPU"))
+    obs.reset()
+    packet._iterate(wk, 3)
+    assert body == [wk] * 3 and "packet.phase_a_kernel_iterations" not in obs.counters()
+    for K, n in ((16, 4), (4, 4), (16, 0)):
+        with pytest.raises(ValueError):
+            phase_a_walk.walk(packet._Walk(dataclasses.replace(tb), 4, D, K, cpu), n)
+
+
+def test_walk_bound_counts_one_launch_of_work(blob, monkeypatch):
+    """The smoke's count of one walk launch's work, on the CPU with
+    ``_body`` standing in for the kernel: the top-tree rows visited, the
+    sibling-stack rows touched and the emissions written over the first
+    ``CHECK_EVERY`` iterations from the root, which ``walk_bound`` prices
+    below a read of every buffer whole."""
+    import chip_smoke
+
+    _, _, tb = blob
+    o, d = _mixed(n=1024, seed=7)
+    rays = make_rays(torch.as_tensor(o), torch.as_tensor(d))
+    C, D, K, cpu = 8, max(tb.depth, 1), 16, torch.device("cpu")
+    tile = lambda x: x.reshape(C, packet.TILE, *x.shape[1:])
+    wk = packet._Walk(dataclasses.replace(tb), C, D, K, cpu)
+    wk.load(packet._init_state(C, D, cpu), tile(rays.o), tile(rays.d), tile(rays.tmin),
+            tile(rays.tmax))
+    saved = chip_smoke.walk_twin(wk)
+    monkeypatch.setattr(phase_a_walk, "walk",
+                        lambda w, n: [packet._body(w) for _ in range(n)])
+    launches, work = chip_smoke.check_walk_kernel(wk, saved)
+    chip_smoke.restore_walk(wk, saved)
+    for _ in range(packet.CHECK_EVERY):
+        packet._body(wk)
+    assert launches > 1 and work["emitted"] == int(wk.en.clamp(max=K).sum()) > 0
+    assert 1 < work["top_rows"] < work["visits"] <= packet.CHECK_EVERY * C
+    assert C <= work["stack_rows"] <= packet.CHECK_EVERY * C
+    st = wk.st
+    whole = chip_smoke.nbytes(wk.o, wk.inv_d, wk.tmin, wk.prune, wk.amax, wk.top, wk.top_ref,
+                              wk.eids, wk.enear) \
+        + 2 * chip_smoke.nbytes(st.cur, st.level, st.asc, st.done, st.paused, st.snear,
+                                st.sref, wk.en)
+    ms, _ = chip_smoke.walk_bound(wk, work)
+    rays_ms, _ = chip_smoke.bound_ms(chip_smoke.nbytes(wk.o, wk.inv_d, wk.tmin, wk.prune), 0)
+    assert rays_ms < ms < chip_smoke.bound_ms(whole, 0)[0]
 
 
 def test_tiling_round_trip():

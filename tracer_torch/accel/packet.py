@@ -12,16 +12,18 @@
   phase B tightens its rays' best t, the walk resumes with the tighter
   pruning bound. Rounds repeat while any tile is paused.
 
-Phase A is PyTorch ops, as it is XLA in the JAX package; every float
-operation in it (subtract, multiply, divide, min, max) is exactly rounded,
-so it emits the same blocks as the JAX package. JAX's ``while_loop`` over
-phase A becomes a host loop that reads its condition every
-``CHECK_EVERY`` iterations: an iteration changes nothing for a tile that
-is done or paused, so the extra iterations are no-ops, and the count never
-exceeds ``MAX_IT``. On a CUDA device each batch of ``CHECK_EVERY``
-iterations is one replay of a CUDA graph of the same loop body
-(``_Walk``): the host launches one graph where it would launch each
-operation of the walk. The JAX package's XLA phase B is the kernel's twin,
+Phase A is XLA in the JAX package. Here a walk iteration is ``_body``, in
+PyTorch ops, on CPU tensors, and one hand-written CUDA kernel
+(``tracer_torch.kernels.phase_a_walk``) that runs ``n`` iterations of it at
+once on a CUDA device; ``_body`` is the kernel's twin, bit for bit. Every
+float operation of the walk (subtract, multiply, divide, min, max) is
+exactly rounded, so it emits the same blocks as the JAX package. JAX's
+``while_loop`` over phase A becomes a host loop that reads its condition
+every ``CHECK_EVERY`` iterations: an iteration changes nothing for a tile
+that is done or paused, so the extra iterations are no-ops, and the count
+never exceeds ``MAX_IT``. On a CUDA device each batch of ``CHECK_EVERY``
+iterations is one replay of a CUDA graph that holds one launch of the
+kernel (``_Walk``). The JAX package's XLA phase B is the kernel's twin,
 ``treelet_hits.hits_reference``.
 """
 
@@ -33,7 +35,7 @@ import torch
 
 from tracer_torch import obs
 from tracer_torch.accel.treelet import TreeletBvh
-from tracer_torch.kernels import treelet_hits
+from tracer_torch.kernels import phase_a_walk, treelet_hits
 from tracer_torch.kernels.intersect import Rays
 
 _INF = 3.0e38
@@ -126,16 +128,19 @@ _STATE = [f.name for f in fields(TravState)]
 class _Walk:
     """Phase A's fixed buffers for one chunk shape (C tiles, stack depth D,
     K emissions) of one tree: the walk's inputs, a chunk's ``TravState``
-    and the round's emissions. A call copies its chunk in, iterates
-    ``_body`` on them and copies the state out.
+    and the round's emissions. A call copies its chunk in, iterates the
+    walk on them (``_iterate``) and copies the state out.
 
-    On a CUDA device they also hold a graph of ``CHECK_EVERY`` iterations,
-    captured when the buffers are made, before any chunk is copied in: its
-    replay launches the eager loop's kernels on the same addresses, so it
-    walks bit for bit as the eager loop does, with one host launch where
-    the loop makes one per operation. The graph reads the tree's ``top``
-    and ``top_ref`` by address too, so the buffers live in the tree's own
-    table (``TreeletBvh.walks``), keyed by device and shape."""
+    On a CUDA device they also hold a graph of one launch of the walk
+    kernel for ``CHECK_EVERY`` iterations, captured when the buffers are
+    made, before any chunk is copied in: its replay launches that kernel
+    on the same addresses, so it walks bit for bit as a direct launch
+    does. ``graph_kernel_iterations`` is what the kernel's wrapper recorded
+    while the graph was captured: the walk iterations a replay runs in the
+    kernel (0 if the graph holds no launch of it). The graph reads the
+    tree's ``top`` and ``top_ref`` by address too, so the buffers live in
+    the tree's own table (``TreeletBvh.walks``), keyed by device and
+    shape."""
 
     def __init__(self, tb: TreeletBvh, C: int, D: int, K: int, dev: torch.device):
         self.top, self.top_ref, self.D, self.K = tb.top, tb.top_ref, D, K
@@ -149,23 +154,23 @@ class _Walk:
         self.eids = torch.zeros((C, K), dtype=torch.int64, device=dev)
         self.enear = f32(C, K)
         self.en = torch.zeros(C, dtype=torch.int64, device=dev)
+        self.graph_kernel_iterations = 0
         self.graph = self._capture(dev) if dev.type == "cuda" else None
 
     def _capture(self, dev: torch.device):
-        """One eager iteration on a side stream first, as ``torch.cuda.graph``
-        asks (lazy initialisation stays out of the graph), then the capture,
-        which runs nothing on the card. Whatever either leaves in the buffers
-        is overwritten by the first call's copy-in."""
+        """One launch on a side stream first, as ``torch.cuda.graph`` asks
+        (building and loading the kernel stay out of the graph), then the
+        capture, which runs nothing on the card. Whatever either leaves in
+        the buffers is overwritten by the first call's copy-in."""
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.device(dev), torch.cuda.stream(stream):
-            _body(self)
+            phase_a_walk.walk(self, CHECK_EVERY)
         torch.cuda.current_stream(dev).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(dev), torch.cuda.graph(graph, stream=stream,
                                                       capture_error_mode="thread_local"):
-            for _ in range(CHECK_EVERY):
-                _body(self)
+            phase_a_walk.walk(self, CHECK_EVERY)
         obs.count("packet.phase_a_graph_captures")
         return graph
 
@@ -194,8 +199,24 @@ def _walk(tb: TreeletBvh, C: int, D: int, K: int, dev: torch.device) -> _Walk:
     return tb.walks[key]
 
 
+def _iterate(wk: _Walk, n: int) -> None:
+    """``n`` iterations of the walk on ``wk``'s buffers: ``_body`` ``n``
+    times on CPU tensors, one launch of the walk kernel on a CUDA device
+    (counted as ``packet.phase_a_kernel_iterations``). On a CUDA device
+    ``_phase_a_chunk`` replays its graph for every batch (``MAX_IT`` is a
+    multiple of ``CHECK_EVERY``), so the direct launch serves tests and
+    buffers made without a graph."""
+    if wk.o.device.type == "cpu":
+        for _ in range(n):
+            _body(wk)
+        return
+    phase_a_walk.walk(wk, n)
+    obs.count("packet.phase_a_kernel_iterations", n)
+
+
 def _body(wk: _Walk) -> None:
-    """One iteration of the walk, in place on ``wk``'s buffers."""
+    """One iteration of the walk, in place on ``wk``'s buffers: the CPU's
+    walk and the walk kernel's plain twin."""
     st, top, top_ref, slot8, kiota = wk.st, wk.top, wk.top_ref, wk.slot8, wk.kiota
     R, D, K = top.shape[0], wk.D, wk.K
     o_ = wk.o[:, None, :, :]
@@ -280,8 +301,9 @@ def _phase_a_chunk(tb: TreeletBvh, D: int, K: int, st: TravState, o, d, tmin, pr
     far for closest hit; -inf for occluded lanes in any-hit mode). Updates
     ``st`` in place and returns this round's emissions (ids (C, K), nears
     (C, K), counts (C,)). Each batch of ``CHECK_EVERY`` iterations is one
-    graph replay on a CUDA device; CPU tensors, and a last batch cut short
-    by ``MAX_IT``, iterate eagerly.
+    graph replay on a CUDA device, which adds the iterations its capture
+    recorded in the kernel to ``packet.phase_a_kernel_iterations``; CPU
+    tensors, and buffers without a graph, go through ``_iterate``.
     """
     with obs.span("packet.phase_a"), torch.no_grad():
         wk = _walk(tb, o.shape[0], D, K, o.device)
@@ -292,10 +314,10 @@ def _phase_a_chunk(tb: TreeletBvh, D: int, K: int, st: TravState, o, d, tmin, pr
             obs.count("packet.phase_a_iterations", n)
             if wk.graph is not None and n == CHECK_EVERY:
                 obs.count("packet.phase_a_graph_replays")
+                obs.count("packet.phase_a_kernel_iterations", wk.graph_kernel_iterations)
                 wk.graph.replay()
             else:
-                for _ in range(n):
-                    _body(wk)
+                _iterate(wk, n)
             it += n
         wk.store(st)
         return wk.eids.clone(), wk.enear.clone(), wk.en.clone()
