@@ -1136,8 +1136,8 @@ def restore_walk(wk, saved) -> None:
 
 
 def first_bounce_walk(scene, cfg):
-    """Packet phase A's walk buffers of ``scene``'s tree (the cached ones,
-    with their graph) loaded as ``packet._phase_a_chunk`` loads them for the
+    """Packet phase A's walk buffers of ``scene``'s tree (the cached ones)
+    loaded as ``packet._phase_a_chunk`` loads them for the
     first round of a closest-hit query of the frame's path-mode camera rays
     in 8x16 packets; and a copy of the loaded state to start again from."""
     from tracer_torch.accel import packet
@@ -1198,10 +1198,10 @@ def check_walk_kernel(wk, saved) -> tuple[int, dict]:
     return launches, first
 
 
-def time_walk(wk, saved, reps: int = 50) -> tuple[float, float, float]:
+def time_walk(wk, saved, reps: int = 50) -> tuple[float, float]:
     """Device ms of one batch of ``CHECK_EVERY`` walk iterations from
-    ``saved``: the kernel launched directly, the same launch replayed from
-    the walk's graph, and ``_body`` run eagerly. Each batch starts from a
+    ``saved``: the kernel launched as phase A launches it, and ``_body``
+    run eagerly. Each batch starts from a
     restored state behind a ``torch.cuda._sleep``, so its events time the
     device alone where the host enqueues faster than the card runs."""
     from tracer_torch.accel import packet
@@ -1225,7 +1225,7 @@ def time_walk(wk, saved, reps: int = 50) -> tuple[float, float, float]:
             packet._body(wk)
 
     kernel = timed(lambda: phase_a_walk.walk(wk, packet.CHECK_EVERY), reps)
-    return kernel, timed(wk.graph.replay, reps), timed(body, 5)
+    return kernel, timed(body, 5)
 
 
 def walk_bound(wk, work: dict) -> tuple[float, str]:
@@ -1741,7 +1741,7 @@ def direct_phase(dev, card: str, kernels, dragon) -> dict:
         if not same_but_config(row_desc, ddesc):
             raise AssertionError(f"{row_desc.name} is not phase 4's dragon under another config")
         cfg = scene_config(row_desc)
-        if (cfg.width, cfg.height) != frame or integrator._effective_traversal(dscene, cfg) != "bvh":
+        if (cfg.width, cfg.height) != frame or not integrator._mesh_engine(dscene, cfg).seeded:
             raise AssertionError(f"{row_desc.name} is not the 800x450 flat-engine frame")
         state = progressive.init_state(cfg, dev)
         reset()
@@ -3233,16 +3233,15 @@ def main() -> int:
     torch.cuda.synchronize()
     per_frame.append(treelet_hits.KERNEL_LAUNCHES)
     frames = 10
-    walk_names = ("packet.phase_a_graph_replays", "packet.phase_a_iterations",
-                  "packet.phase_a_kernel_iterations")
-    phase_a_walk.KERNEL_LAUNCHES = 0
-    walk_counts = [[obs.counters().get(k, 0) for k in walk_names]]
+    walk_names = ("packet.phase_a_iterations", "packet.phase_a_kernel_iterations")
+    walk_counts = [[obs.counters().get(k, 0) for k in walk_names] + [phase_a_walk.KERNEL_LAUNCHES]]
     t0 = time.perf_counter()
     start.record()
     for _ in range(frames):
         progressive.step(pscene, pcfg, pstate)
         per_frame.append(treelet_hits.KERNEL_LAUNCHES)
-        walk_counts.append([obs.counters().get(k, 0) for k in walk_names])
+        walk_counts.append([obs.counters().get(k, 0) for k in walk_names]
+                           + [phase_a_walk.KERNEL_LAUNCHES])
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3252,21 +3251,21 @@ def main() -> int:
     if min(np.diff([0] + per_frame)) < 1 or p_ref != 0:
         raise AssertionError(f"a path frame did not run on B3 alone (launches {per_frame}, "
                              f"twin calls {p_ref})")
-    walk_replays, walk_iters, walk_kernel_iters = np.diff(walk_counts, axis=0).T.tolist()
-    walk_direct = phase_a_walk.KERNEL_LAUNCHES
-    if min(walk_replays) < 1 or walk_kernel_iters != walk_iters or walk_direct:
-        raise AssertionError(f"a path frame's walk did not run in phase A's walk kernel "
-                             f"(graph replays {walk_replays}, iterations {walk_iters}, in the "
-                             f"kernel {walk_kernel_iters}, direct launches {walk_direct})")
+    walk_iters, walk_kernel_iters, walk_frame_launches = np.diff(walk_counts, axis=0).T.tolist()
+    if min(walk_frame_launches) < 1 or walk_kernel_iters != walk_iters \
+            or [n * packet.CHECK_EVERY for n in walk_frame_launches] != walk_iters:
+        raise AssertionError(f"a path frame's walk did not run in phase A's walk kernel, one "
+                             f"launch a batch (launches {walk_frame_launches}, iterations "
+                             f"{walk_iters}, in the kernel {walk_kernel_iters})")
     p_ms = start.elapsed_time(end) / frames
     log(f"[path] {frames} frames: {p_ms:.3f} ms/frame (CUDA events), "
         f"{wall / frames * 1e3:.3f} ms/frame (host clock), primary "
         f"{pcfg.width * pcfg.height / (p_ms * 1e3):.3f} Mpath/s; {card}")
     log(f"[path] B3 launches {p_launches} over {frames + 1} frames (cumulative {per_frame}), "
         f"twin calls {p_ref}")
-    log(f"[path] phase A walk kernel over the {frames} timed frames: graph replays "
-        f"{walk_replays}, walk iterations {walk_iters}, of them in the kernel "
-        f"{walk_kernel_iters}, direct launches {walk_direct}")
+    log(f"[path] phase A walk kernel over the {frames} timed frames: launches "
+        f"{walk_frame_launches}, walk iterations {walk_iters}, of them in the kernel "
+        f"{walk_kernel_iters}")
 
     # 6b. One more frame with spies on the layers (not timed above).
     rec = instrumented_step(pscene, pcfg, pstate)
@@ -3440,11 +3439,11 @@ def main() -> int:
         f"T live Moller tests/s), bound over all lanes {b3_all_ms:.4f} ms ({b3_all_by}; "
         f"{b3_stats['visits']} tile x block visits x 128 x {tb_r.T}); {card}")
 
-    walk_ms, walk_replay_ms, walk_plain_ms = time_walk(walk_wk, walk_saved)
+    walk_ms, walk_plain_ms = time_walk(walk_wk, walk_saved)
     walk_bound_ms, walk_by = walk_bound(walk_wk, walk_work)
     log(f"[time] phase A walk W9 E1 first-bounce chunk ({walk_wk.o.shape[0]} tiles, "
         f"{packet.CHECK_EVERY} iterations from the root): kernel {walk_ms:.4f} ms per launch, "
-        f"replayed from its graph {walk_replay_ms:.4f} ms, _body eager {walk_plain_ms:.3f} ms, "
+        f"_body eager {walk_plain_ms:.3f} ms, "
         f"bound {walk_bound_ms:.4f} ms ({walk_by}; {walk_work}); {card}")
 
     # 8. Path mode in the Cornell box (the brute-force engine; no hand kernel).
@@ -3545,15 +3544,13 @@ def main() -> int:
         "route": "cuda",
         "source": "tracer_torch/csrc/phase_a_walk.cu",
         "replaces": "none (phase A is XLA in the JAX package, tracer/accel/packet.py)",
-        "launches": sum(walk_replays) + walk_direct,
+        "launches": sum(walk_frame_launches),
         "main_path_frames": frames,
-        "graph_replays_per_frame": walk_replays,
+        "launches_per_frame": walk_frame_launches,
         "iterations_per_frame": walk_iters,
         "kernel_iterations_per_frame": walk_kernel_iters,
-        "direct_launches": walk_direct,
         "max_abs_err": 0.0,
         "ms": walk_ms,
-        "replay_ms": walk_replay_ms,
         "plain_ms": walk_plain_ms,
         "bound_ms": walk_bound_ms,
         "bound_by": walk_by,

@@ -35,9 +35,9 @@ Tolerances:
   bit against ``_body`` on a copy of the same buffers, and whole queries
   through it bit for bit against the same queries through ``_body``: both
   perform the same exactly rounded float32 operations, NaN-propagating
-  min and max, and argmin's lowest slot on ties. A replay counts the
-  iterations its capture recorded in the kernel, so a graph of ``_body``
-  counts none.
+  min and max, and argmin's lowest slot on ties. The kernel's wrapper
+  counts the iterations it launches, so ``_body`` in its place counts
+  none.
 * B3 and the path-mode frames: bit for bit. B3 shares B1's Möller test
   (``csrc/moller.cuh``); the warps and the environment lookup take their
   transcendentals in float64 and round them (``math/vec.py``), so the card
@@ -466,31 +466,28 @@ def _halved(tb):
                                t_hi=tb.t_hi * 0.5)
 
 
-def _packet_run(tb, rays, any_hit, graph, monkeypatch):
-    """``packet._run`` on ``tb``'s own walk table: through the phase A graph,
-    or through the same walk's eager loop (no graph captured)."""
+def _body_run(tb, rays, frame, any_hit, monkeypatch):
+    """``packet._run`` with ``_body`` in the walk kernel's place, on a walk
+    table of its own: no launch of the kernel."""
     with monkeypatch.context() as m:
-        if not graph:
-            tb = dataclasses.replace(tb)
-            m.setattr(packet._Walk, "_capture", lambda self, dev: None)
-        c0 = obs.counters()
-        out = packet._run(rays, tb, None, any_hit)
-        replays = obs.counters().get("packet.phase_a_graph_replays", 0) - c0.get(
-            "packet.phase_a_graph_replays", 0)
-    assert (replays > 0) == graph
+        m.setattr(packet, "_iterate", lambda wk, n: [packet._body(wk) for _ in range(n)])
+        launches = phase_a_walk.KERNEL_LAUNCHES
+        out = packet._run(rays, dataclasses.replace(tb), frame, any_hit)
+        assert phase_a_walk.KERNEL_LAUNCHES == launches
     return out
 
 
 @pytest.mark.cuda
 def test_phase_a_graph_walks_as_the_eager_loop(cuda, monkeypatch):
-    """Packet phase A replayed from its CUDA graph against the same walk's
-    eager loop on the card: W9 E1's first-bounce wavefront at 128x128,
-    closest hit and any hit, ``K_EMIT`` = 16 so tiles pause for several
-    rounds: bt, bp and conv bit for bit. A second tree in the same process
-    (the bunny's scaled by 1/2, so its walk has the same shapes and key)
-    captures a graph of its own and gives its own eager answer. Over three
-    frames the captures stay at one per key and each batch of
-    ``CHECK_EVERY`` iterations is one replay."""
+    """Packet phase A through its walk kernel, one direct launch a batch
+    (the name is from when a batch replayed a CUDA graph), against the
+    same walk with ``_body`` in the kernel's place on the card: W9 E1's
+    first-bounce wavefront at 128x128, closest hit and any hit,
+    ``K_EMIT`` = 16 so tiles pause for several rounds: bt, bp and conv bit
+    for bit. A second tree in the same process (the bunny's scaled by 1/2,
+    so its walk has the same shapes and key) walks from a table of its own
+    and gives its own answer. Over three frames each key keeps its one
+    ``_Walk`` and every walk iteration runs in the kernel."""
     desc = get_scene("W9 E1 Bunny")
     desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=128, height=128))
     scene, cfg = build_scene(desc, cuda)
@@ -503,28 +500,29 @@ def test_phase_a_graph_walks_as_the_eager_loop(cuda, monkeypatch):
         dispatch = packet._dispatch_hits
         m.setattr(packet, "_dispatch_hits", lambda *a: rounds.append(a[3]) or dispatch(*a))
         for tb, r in ((scene.tb, rays), (_halved(scene.tb), half)):
-            captures = obs.counters().get("packet.phase_a_graph_captures", 0)
             for any_hit in (False, True):
                 rounds.clear()
-                got = _packet_run(tb, r, any_hit, True, monkeypatch)
+                launches = phase_a_walk.KERNEL_LAUNCHES
+                got = packet._run(r, tb, None, any_hit)
+                assert phase_a_walk.KERNEL_LAUNCHES > launches
                 assert len(rounds) > 1 and int(rounds[0].max()) > 16 - 8
-                want = _packet_run(tb, r, any_hit, False, monkeypatch)
+                want = _body_run(tb, r, None, any_hit, monkeypatch)
                 assert all(_bits_equal(a, b) for a, b in zip(got, want))
                 assert int((got[1] >= 0).sum()) > 100 and bool(got[2].all())
-            assert obs.counters()["packet.phase_a_graph_captures"] == captures + 1
             assert len(tb.walks) == 1
 
-    names = ("packet.phase_a_graph_captures", "packet.phase_a_graph_replays",
-             "packet.phase_a_iterations")
+    names = ("packet.phase_a_iterations", "packet.phase_a_kernel_iterations")
     st = progressive.init_state(cfg, cuda)
-    seen = []
+    seen, walks = [], []
     for _ in range(3):
         c0 = obs.counters()
         progressive.step(scene, cfg, st)
         seen.append([obs.counters().get(k, 0) - c0.get(k, 0) for k in names])
+        walks.append(dict(scene.tb.walks))
     torch.cuda.synchronize()
-    assert [c[0] for c in seen] == [1, 0, 0] and len(scene.tb.walks) == 2
-    assert all(c[1] > 0 and c[1] * packet.CHECK_EVERY == c[2] for c in seen)
+    assert len(walks[0]) == 2 and all(w.keys() == walks[0].keys() for w in walks)
+    assert all(w[k] is walks[0][k] for w in walks for k in w)
+    assert all(c[0] > 0 and c[0] == c[1] for c in seen)
 
 
 def _edge_rays(tb, device, rows: int = 8):
@@ -574,8 +572,8 @@ def walk_case():
 @pytest.mark.parametrize("chunk", [packet.CHUNK_TILES, 3], ids=["one_chunk", "chunks_of_3"])
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "anyhit"])
 def test_phase_a_walk_kernel_matches_body(walk_case, monkeypatch, any_hit, chunk, K, n):
-    """Every launch of the phase A walk kernel (``n`` iterations; no graph)
-    in a whole query on ``walk_case``, against ``n`` calls of ``_body`` on a
+    """Every launch of the phase A walk kernel (``n`` iterations) in a
+    whole query on ``walk_case``, against ``n`` calls of ``_body`` on a
     copy of the same buffers: cur, level, asc, done, paused, snear, sref,
     eids, enear and en bit for bit; any-hit rounds after the first prune
     occluded lanes at -3e38. Zero nears (the rays from box faces) are met,
@@ -602,7 +600,6 @@ def test_phase_a_walk_kernel_matches_body(walk_case, monkeypatch, any_hit, chunk
     rounds = []
     dispatch = packet._dispatch_hits
     monkeypatch.setattr(packet, "_iterate", checked)
-    monkeypatch.setattr(packet._Walk, "_capture", lambda self, dev: None)
     monkeypatch.setattr(packet, "CHECK_EVERY", n)
     monkeypatch.setattr(packet, "K_EMIT", K)
     monkeypatch.setattr(packet, "CHUNK_TILES", chunk)
@@ -618,65 +615,55 @@ def test_phase_a_walk_kernel_matches_body(walk_case, monkeypatch, any_hit, chunk
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "anyhit"])
 def test_packet_queries_through_the_walk_kernel_equal_body(cuda, monkeypatch, any_hit):
     """W9 E1's first-bounce wavefront at 128x128 (one frame of 8x16
-    packets) through the packet query, once with phase A's graph of one
-    walk kernel launch and once with the walk's dispatch sent to ``_body``
-    (no graph, no kernel): bt, bp and conv bit for bit; every walk
-    iteration of the first ran in the kernel."""
+    packets) through the packet query, once through the walk kernel and
+    once with the walk's dispatch sent to ``_body`` (no kernel): bt, bp and
+    conv bit for bit; every walk iteration of the first ran in the
+    kernel."""
     desc = get_scene("W9 E1 Bunny")
     desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=128, height=128))
     scene, cfg = build_scene(desc, cuda)
     rays, _ = integrator._path_primary(scene, cfg)
-    names = ("packet.phase_a_iterations", "packet.phase_a_kernel_iterations",
-             "packet.phase_a_graph_replays")
+    names = ("packet.phase_a_iterations", "packet.phase_a_kernel_iterations")
     c0 = obs.counters()
     got = packet._run(rays, scene.tb, (128, 128), any_hit)
-    iters, kernel_iters, replays = (obs.counters().get(k, 0) - c0.get(k, 0) for k in names)
-    assert iters > 0 and kernel_iters == iters and replays > 0
-    with monkeypatch.context() as m:
-        m.setattr(packet._Walk, "_capture", lambda self, dev: None)
-        m.setattr(packet, "_iterate", lambda wk, n: [packet._body(wk) for _ in range(n)])
-        launches = phase_a_walk.KERNEL_LAUNCHES
-        want = packet._run(rays, dataclasses.replace(scene.tb), (128, 128), any_hit)
-        assert phase_a_walk.KERNEL_LAUNCHES == launches
+    iters, kernel_iters = (obs.counters().get(k, 0) - c0.get(k, 0) for k in names)
+    assert iters > 0 and kernel_iters == iters
+    want = _body_run(scene.tb, rays, (128, 128), any_hit, monkeypatch)
     assert all(_bits_equal(a, b) for a, b in zip(got, want))
     assert bool(got[2].all()) and int((got[1] > 0 if any_hit else got[1] >= 0).sum()) > 100
 
 
 @pytest.mark.cuda
 def test_phase_a_kernel_iterations_count_what_the_graph_holds(walk_case, monkeypatch):
-    """A replay of phase A's graph adds to ``packet.phase_a_kernel_iterations``
-    the iterations its capture recorded in the walk kernel: ``CHECK_EVERY``
-    for the graph of one launch (recorded, not counted as a launch that
-    ran; only the warm-up launch before it is), so on a whole query it
-    equals ``packet.phase_a_iterations``. A graph captured around
-    ``_body`` in the kernel's place walks the same query with the same
-    replays and adds none."""
+    """``packet.phase_a_kernel_iterations`` counts what the walk kernel ran
+    (the name is from when a batch replayed a CUDA graph): on a whole query
+    it equals ``packet.phase_a_iterations``, with one launch for each batch
+    that ``_iterate`` takes. ``_body`` sent in the kernel's place walks the
+    same query in the same batches to the same answer and adds none."""
     tb, rays = walk_case
-    names = ("packet.phase_a_iterations", "packet.phase_a_kernel_iterations",
-             "packet.phase_a_graph_replays")
+    names = ("packet.phase_a_iterations", "packet.phase_a_kernel_iterations")
+    batches = []
+    iterate = packet._iterate
+    monkeypatch.setattr(packet, "_iterate", lambda wk, n: batches.append(n) or iterate(wk, n))
 
-    def run(tb):
+    def run():
+        batches.clear()
         c0, launches = obs.counters(), phase_a_walk.KERNEL_LAUNCHES
-        got = packet._run(rays, tb, None, False)
+        got = packet._run(rays, dataclasses.replace(tb), None, False)
         counts = [obs.counters().get(k, 0) - c0.get(k, 0) for k in names]
-        return got, counts, phase_a_walk.KERNEL_LAUNCHES - launches
+        return got, counts, phase_a_walk.KERNEL_LAUNCHES - launches, list(batches)
 
-    kernel_tb = dataclasses.replace(tb)
-    got, (iters, kernel_iters, replays), launches = run(kernel_tb)
-    assert iters > 0 and replays * packet.CHECK_EVERY == iters and kernel_iters == iters
-    assert [w.graph_kernel_iterations for w in kernel_tb.walks.values()] \
-        == [packet.CHECK_EVERY] * len(kernel_tb.walks) and launches == len(kernel_tb.walks)
+    got, (iters, kernel_iters), launches, kernel_batches = run()
+    assert iters > 0 and kernel_iters == iters == sum(kernel_batches)
+    assert launches == len(kernel_batches)
 
     def body_walk(wk, n):
         for _ in range(n):
             packet._body(wk)
 
     monkeypatch.setattr(phase_a_walk, "walk", body_walk)
-    body_tb = dataclasses.replace(tb)
-    want, counts, launches = run(body_tb)
-    assert counts == [iters, 0, replays] and launches == 0
-    assert all(w.graph is not None and w.graph_kernel_iterations == 0
-               for w in body_tb.walks.values())
+    want, counts, launches, body_batches = run()
+    assert counts == [iters, 0] and launches == 0 and body_batches == kernel_batches
     assert all(_bits_equal(a, b) for a, b in zip(got, want))
 
 
@@ -684,7 +671,6 @@ def test_phase_a_kernel_iterations_count_what_the_graph_holds(walk_case, monkeyp
 def test_phase_a_walk_kernel_rejects_what_it_cannot_take(walk_case, monkeypatch):
     tb, _ = walk_case
     dev, D = tb.top.device, max(tb.depth, 1)
-    monkeypatch.setattr(packet._Walk, "_capture", lambda self, dev: None)
     wk = packet._Walk(dataclasses.replace(tb), 8, D, 16, dev)
     phase_a_walk.walk(wk, 1)  # takes what it should
     bad = {"o": wk.o.double(), "inv_d": wk.inv_d.transpose(0, 1).contiguous().transpose(0, 1),

@@ -189,9 +189,9 @@ def test_counters_equal_the_bounces_and_reads_made(bunny, monkeypatch):
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
 def test_phase_a_kernel_iterations_count_on_the_card_only(device, bunny):
     """``packet.phase_a_kernel_iterations`` counts the walk iterations that
-    ran in the walk kernel, replayed from phase A's graph or launched
-    directly: on the card every one of ``packet.phase_a_iterations``; on
-    the CPU, which walks with ``_body``, it is absent."""
+    ran in the walk kernel: on the card, which launches it for every batch,
+    every one of ``packet.phase_a_iterations``; on the CPU, which walks
+    with ``_body``, it is absent."""
     scene, cfg = bunny
     if device == "cuda":
         if not torch.cuda.is_available():

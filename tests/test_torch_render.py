@@ -11,7 +11,9 @@ they agree, the accumulated radiance agrees at rtol 1e-5 / atol 1e-6 (the
 same float32 formulas, but XLA on the CPU contracts multiply-adds into FMAs
 where PyTorch rounds each operation). Miss pixels must equal the
 background colour bitwise on both sides. Seeded and unseeded renders of
-the port are compared bitwise.
+the port are compared bitwise. The integrator's table of mesh engines is
+held to the entry point and arguments that each traversal and mode call
+for.
 """
 
 from __future__ import annotations
@@ -31,8 +33,11 @@ from tracer.render import progressive as jax_progressive
 from tracer.scenes import build_scene as jax_build_scene
 from tracer.scenes import get_scene as jax_get_scene
 
+from chip_smoke import with_fixture_model
 from tracer_torch import convert
-from tracer_torch.accel import flat
+from tracer_torch.accel import bsp as bsp_mod
+from tracer_torch.accel import flat, packet, traverse, wide
+from tracer_torch.kernels import intersect
 from tracer_torch.render import integrator
 from tracer_torch.render import progressive
 from tracer_torch.render.camera import camera_rays, make_camera, pixel_uv
@@ -160,3 +165,98 @@ def test_to_display_paints_negative_and_nan():
     assert torch.allclose(out[0], torch.tensor([0.125, 0.5 ** 1.5, 1.0]))
     assert torch.equal(out[1], torch.tensor(integrator.ERROR_COLOR))
     assert torch.equal(out[2], torch.tensor(integrator.ERROR_COLOR))
+
+
+# (traversal, bsp_execution) -> the engine module each mode reaches; None:
+# the flat engine in direct mode, the packet engine in path mode.
+ENGINE_CASES = {
+    "brute": ("brute", "fast", intersect),
+    "bsp_fast": ("bsp", "fast", None),
+    "bsp_walked": ("bsp", "walk", bsp_mod),
+    "bvh2": ("bvh2", "fast", traverse),
+    "bvh8": ("bvh8", "fast", wide),
+    "bvh": ("bvh", "fast", None),
+}
+ENTRY_POINTS = {intersect: ("mesh_brute_force", "mesh_brute_force_anyhit"),
+                bsp_mod: ("bsp_closest_hit", "bsp_any_hit"),
+                traverse: ("bvh_closest_hit", "bvh_any_hit"),
+                wide: ("closest_hit", "any_hit"), flat: ("closest_hit", "any_hit"),
+                packet: ("closest_hit", "any_hit")}
+
+
+@pytest.fixture(scope="module")
+def engine_scene():
+    """The 12-triangle Cornell box at 8x8, with stand-ins for the four
+    structures the engines walk."""
+    scene, cfg = build_scene(_small(with_fixture_model(get_scene("W8 E3 Absorption")), 8, 8),
+                             "cpu")
+    marks = {k: type(k, (), {})() for k in ("tb", "bsp", "bvh", "wide")}
+    return dataclasses.replace(scene, **marks), cfg
+
+
+@pytest.mark.parametrize("mode", ["direct", "path"])
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_mesh_engine_reaches_what_the_chains_reached(engine_scene, monkeypatch, case, mode):
+    """``trace_closest`` and ``_mesh_only_anyhit`` each call exactly one
+    engine entry point, with its arguments: the brute-force engine, the
+    BSP walk (``bsp`` walked), the ``bvh2`` walk with ``max_leaf``, the
+    ``bvh8`` walk, or the flat engine (direct mode, with the detached seed)
+    and the packet engine (path mode) for ``bvh`` and ``bsp`` run fast; a
+    capped engine's converged flags reach the hit, an uncapped one
+    converges everywhere. ``host_free`` holds for the brute-force engine
+    only, ``seeded`` for the flat engine only."""
+    scene, cfg = engine_scene
+    trav, execution, mod = ENGINE_CASES[case]
+    cfg = dataclasses.replace(cfg, traversal=trav, bsp_execution=execution, mode=mode)
+    mod = mod or (flat if mode == "direct" else packet)
+    g = scene.geom
+    structure = {intersect: (), bsp_mod: (scene.bsp,), traverse: (scene.bvh,),
+                 wide: (scene.wide,), flat: (scene.tb,), packet: (scene.tb,)}[mod]
+    args = structure + ((g.vertices, g.indices) if mod in (intersect, bsp_mod, traverse) else ())
+    kwargs = ({"max_leaf": cfg.max_leaf} if mod is traverse else {} if mod is intersect
+              else {"with_conv": True} if mod in (bsp_mod, wide)
+              else {"frame": (8, 8), "with_conv": True})
+    capped = mod not in (intersect, traverse)
+
+    calls = []
+
+    def spy(name, any_hit):
+        def entry(rays, *a, **kw):
+            calls.append((name, a, kw))
+            n = rays.o.shape[0]
+            conv = torch.ones(n, dtype=torch.bool)
+            conv[0] = False
+            if any_hit:
+                blocked = torch.zeros(n, dtype=torch.bool)
+                return (blocked, conv) if kw.get("with_conv") else blocked
+            tri = torch.full((n,), -1, dtype=torch.int32)
+            return (rays.tmax, tri, conv) if kw.get("with_conv") else (rays.tmax, tri)
+        return entry
+
+    for m, names in ENTRY_POINTS.items():
+        for name, any_hit in zip(names, (False, True)):
+            monkeypatch.setattr(m, name, spy(f"{m.__name__}.{name}", any_hit))
+    closest, any_hit = (f"{mod.__name__}.{n}" for n in ENTRY_POINTS[mod])
+    rays = integrator.primary_rays(scene, cfg)
+    seed = torch.full((64,), 2.0, requires_grad=True)
+
+    hit = integrator.trace_closest(scene, cfg, rays, seed_t=seed)
+    assert [c[0] for c in calls] == [closest]
+    _, got_args, got_kw = calls.pop()
+    if mod is flat:
+        s = got_kw.pop("seed_t")
+        assert not s.requires_grad and torch.equal(s, seed)
+    assert len(got_args) == len(args) and all(a is b for a, b in zip(got_args, args))
+    assert got_kw == kwargs
+    assert hit.converged.tolist() == [not capped or i > 0 for i in range(64)]
+
+    blocked, conv = integrator._mesh_only_anyhit(scene, cfg, rays)
+    assert [c[0] for c in calls] == [any_hit]
+    _, got_args, got_kw = calls.pop()
+    assert len(got_args) == len(args) and all(a is b for a, b in zip(got_args, args))
+    assert got_kw == kwargs
+    assert not blocked.any() and conv.tolist() == [not capped or i > 0 for i in range(64)]
+
+    engine = integrator._mesh_engine(scene, cfg)
+    assert engine.host_free == (mod is intersect)
+    assert engine.seeded == (mod is flat)

@@ -22,9 +22,8 @@ exactly rounded, so it emits the same blocks as the JAX package. JAX's
 every ``CHECK_EVERY`` iterations: an iteration changes nothing for a tile
 that is done or paused, so the extra iterations are no-ops, and the count
 never exceeds ``MAX_IT``. On a CUDA device each batch of ``CHECK_EVERY``
-iterations is one replay of a CUDA graph that holds one launch of the
-kernel (``_Walk``). The JAX package's XLA phase B is the kernel's twin,
-``treelet_hits.hits_reference``.
+iterations is one launch of the kernel. The JAX package's XLA phase B is
+the kernel's twin, ``treelet_hits.hits_reference``.
 """
 
 from __future__ import annotations
@@ -129,18 +128,10 @@ class _Walk:
     """Phase A's fixed buffers for one chunk shape (C tiles, stack depth D,
     K emissions) of one tree: the walk's inputs, a chunk's ``TravState``
     and the round's emissions. A call copies its chunk in, iterates the
-    walk on them (``_iterate``) and copies the state out.
-
-    On a CUDA device they also hold a graph of one launch of the walk
-    kernel for ``CHECK_EVERY`` iterations, captured when the buffers are
-    made, before any chunk is copied in: its replay launches that kernel
-    on the same addresses, so it walks bit for bit as a direct launch
-    does. ``graph_kernel_iterations`` is what the kernel's wrapper recorded
-    while the graph was captured: the walk iterations a replay runs in the
-    kernel (0 if the graph holds no launch of it). The graph reads the
-    tree's ``top`` and ``top_ref`` by address too, so the buffers live in
-    the tree's own table (``TreeletBvh.walks``), keyed by device and
-    shape."""
+    walk on them (``_iterate``) and copies the state out. They are made
+    once per tree, device and shape and kept (``TreeletBvh.walks``), so a
+    chunk allocates nothing and builds no index table (``rows``, ``kiota``,
+    ``slot8``)."""
 
     def __init__(self, tb: TreeletBvh, C: int, D: int, K: int, dev: torch.device):
         self.top, self.top_ref, self.D, self.K = tb.top, tb.top_ref, D, K
@@ -154,25 +145,6 @@ class _Walk:
         self.eids = torch.zeros((C, K), dtype=torch.int64, device=dev)
         self.enear = f32(C, K)
         self.en = torch.zeros(C, dtype=torch.int64, device=dev)
-        self.graph_kernel_iterations = 0
-        self.graph = self._capture(dev) if dev.type == "cuda" else None
-
-    def _capture(self, dev: torch.device):
-        """One launch on a side stream first, as ``torch.cuda.graph`` asks
-        (building and loading the kernel stay out of the graph), then the
-        capture, which runs nothing on the card. Whatever either leaves in
-        the buffers is overwritten by the first call's copy-in."""
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.device(dev), torch.cuda.stream(stream):
-            phase_a_walk.walk(self, CHECK_EVERY)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev), torch.cuda.graph(graph, stream=stream,
-                                                      capture_error_mode="thread_local"):
-            phase_a_walk.walk(self, CHECK_EVERY)
-        obs.count("packet.phase_a_graph_captures")
-        return graph
 
     def load(self, st: TravState, o, d, tmin, prune) -> None:
         self.o.copy_(o)
@@ -201,17 +173,12 @@ def _walk(tb: TreeletBvh, C: int, D: int, K: int, dev: torch.device) -> _Walk:
 
 def _iterate(wk: _Walk, n: int) -> None:
     """``n`` iterations of the walk on ``wk``'s buffers: ``_body`` ``n``
-    times on CPU tensors, one launch of the walk kernel on a CUDA device
-    (counted as ``packet.phase_a_kernel_iterations``). On a CUDA device
-    ``_phase_a_chunk`` replays its graph for every batch (``MAX_IT`` is a
-    multiple of ``CHECK_EVERY``), so the direct launch serves tests and
-    buffers made without a graph."""
+    times on CPU tensors, one launch of the walk kernel on a CUDA device."""
     if wk.o.device.type == "cpu":
         for _ in range(n):
             _body(wk)
         return
     phase_a_walk.walk(wk, n)
-    obs.count("packet.phase_a_kernel_iterations", n)
 
 
 def _body(wk: _Walk) -> None:
@@ -300,10 +267,8 @@ def _phase_a_chunk(tb: TreeletBvh, D: int, K: int, st: TravState, o, d, tmin, pr
     ``prune``: (C, TILE) per-ray upper bound on a useful t (the best t so
     far for closest hit; -inf for occluded lanes in any-hit mode). Updates
     ``st`` in place and returns this round's emissions (ids (C, K), nears
-    (C, K), counts (C,)). Each batch of ``CHECK_EVERY`` iterations is one
-    graph replay on a CUDA device, which adds the iterations its capture
-    recorded in the kernel to ``packet.phase_a_kernel_iterations``; CPU
-    tensors, and buffers without a graph, go through ``_iterate``.
+    (C, K), counts (C,)). Each batch of up to ``CHECK_EVERY`` iterations
+    goes through ``_iterate``.
     """
     with obs.span("packet.phase_a"), torch.no_grad():
         wk = _walk(tb, o.shape[0], D, K, o.device)
@@ -312,12 +277,7 @@ def _phase_a_chunk(tb: TreeletBvh, D: int, K: int, st: TravState, o, d, tmin, pr
         while it < MAX_IT and obs.host_read("packet.walk", (~wk.st.done & ~wk.st.paused).any()):
             n = min(CHECK_EVERY, MAX_IT - it)
             obs.count("packet.phase_a_iterations", n)
-            if wk.graph is not None and n == CHECK_EVERY:
-                obs.count("packet.phase_a_graph_replays")
-                obs.count("packet.phase_a_kernel_iterations", wk.graph_kernel_iterations)
-                wk.graph.replay()
-            else:
-                _iterate(wk, n)
+            _iterate(wk, n)
             it += n
         wk.store(st)
         return wk.eids.clone(), wk.enear.clone(), wk.en.clone()

@@ -46,10 +46,9 @@ class TreeletBvh:
     top: torch.Tensor  # (R, 8, 8) f32 top tree: [lo3, hi3, ref (i32 bits), pad]
     T: int  # triangles per block
     depth: int  # max top-tree descent depth (the packet walk's stack bound)
-    # Packet phase A's fixed buffers and CUDA graphs by chunk shape
-    # (``accel.packet._walk``). A graph holds the addresses of this tree's
-    # buffers, so the table is the tree's own: ``dataclasses.replace`` starts
-    # an empty one.
+    # Packet phase A's fixed buffers by chunk shape (``accel.packet._walk``).
+    # They hold this tree's ``top`` and ``top_ref``, so the table is the
+    # tree's own: ``dataclasses.replace`` starts an empty one.
     walks: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property

@@ -9,10 +9,8 @@ kernel equals bit for bit; CPU tensors run the twin
 (``packet._iterate``), and for CUDA tensors ``walk`` launches the kernel
 or raises. It replaces no Pallas kernel: phase A is XLA in the JAX package.
 
-``KERNEL_LAUNCHES`` counts the host's launches that run (a launch recorded
-into a CUDA graph's capture is not one, nor is the graph's replay). A
-capture adds ``n`` to the buffers' ``graph_kernel_iterations`` instead, so
-that a replay counts the iterations it runs in this kernel.
+``KERNEL_LAUNCHES`` counts the launches and the counter
+``packet.phase_a_kernel_iterations`` the iterations they run.
 """
 
 from __future__ import annotations
@@ -22,6 +20,7 @@ import functools
 
 import torch
 
+from tracer_torch import obs
 from tracer_torch._build import CSRC, nvcc_command, shared_library
 
 TILE = 128  # rays per tile
@@ -81,8 +80,7 @@ def _check(wk) -> tuple[int, int, int, int]:
 
 def walk(wk, n: int) -> None:
     """``n`` iterations of the walk on every tile of ``wk``, in place: one
-    launch on the current stream (also inside a CUDA graph's capture, where
-    it is recorded in ``wk.graph_kernel_iterations``)."""
+    launch on the current stream."""
     global KERNEL_LAUNCHES
     if n < 1:
         raise ValueError(f"phase_a_walk: n = {n}")
@@ -94,10 +92,7 @@ def walk(wk, n: int) -> None:
     with torch.cuda.device(wk.o.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.phase_a_walk_launch(*(x.data_ptr() for x in ptrs), R, C, D, K, n, stream)
-        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"phase_a_walk: kernel launch failed (cudaError {err})")
-    if capturing:
-        wk.graph_kernel_iterations += n
-    else:
-        KERNEL_LAUNCHES += 1
+    KERNEL_LAUNCHES += 1
+    obs.count("packet.phase_a_kernel_iterations", n)

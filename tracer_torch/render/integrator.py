@@ -60,6 +60,7 @@ bounce divides or fills by are made once (``vec.const``), since a fresh
 
 from __future__ import annotations
 
+from collections.abc import Callable
 from dataclasses import dataclass, fields, replace
 
 import torch
@@ -207,16 +208,70 @@ def _effective_traversal(scene: Scene, cfg: SceneConfig) -> str:
     return cfg.traversal
 
 
+@dataclass(frozen=True)
+class _Engine:
+    """A mesh's traversal engine as the integrator calls it, on detached
+    rays under ``no_grad``. ``closest(rays, seed_t)`` returns (triangle id
+    or -1, converged) and ``any_hit(rays)`` (blocked, converged), where
+    converged is None for an engine without caps, which always converges.
+    ``host_free``: a query reads nothing back to the host, so a bounce can
+    be captured as a CUDA graph. ``seeded``: the closest hit takes the
+    temporal t seed."""
+
+    closest: Callable
+    any_hit: Callable
+    host_free: bool = False
+    seeded: bool = False
+
+
+def _mesh_engine(scene: Scene, cfg: SceneConfig) -> _Engine:
+    """The engine of the scene's mesh: the brute-force engine (``traversal
+    == "brute"``), the BSP walk (``"bsp"`` with ``bsp_execution !=
+    "fast"``), the ``bvh2`` walk or the ``bvh8`` walk, else the flat engine
+    in direct mode and the packet engine in path mode (incoherent bounces
+    defeat the flat engine's frustums)."""
+    trav = _effective_traversal(scene, cfg)
+    geom, frame = scene.geom, _frame(scene, cfg)
+    engines = {
+        "brute": _Engine(
+            lambda r, s: (intersect.mesh_brute_force(r, geom.vertices, geom.indices)[1], None),
+            lambda r: (intersect.mesh_brute_force_anyhit(r, geom.vertices, geom.indices), None),
+            host_free=True),
+        "bsp": _Engine(
+            lambda r, s: bsp_mod.bsp_closest_hit(r, scene.bsp, geom.vertices, geom.indices,
+                                                 with_conv=True)[1:],
+            lambda r: bsp_mod.bsp_any_hit(r, scene.bsp, geom.vertices, geom.indices,
+                                          with_conv=True)),
+        # The JAX package flags no truncation of this walk.
+        "bvh2": _Engine(
+            lambda r, s: (traverse.bvh_closest_hit(r, scene.bvh, geom.vertices, geom.indices,
+                                                   max_leaf=cfg.max_leaf)[1], None),
+            lambda r: (traverse.bvh_any_hit(r, scene.bvh, geom.vertices, geom.indices,
+                                            max_leaf=cfg.max_leaf), None)),
+        "bvh8": _Engine(
+            lambda r, s: wide.closest_hit(r, scene.wide, with_conv=True)[1:],
+            lambda r: wide.any_hit(r, scene.wide, with_conv=True)),
+        ("bvh", "direct"): _Engine(
+            lambda r, s: flat.closest_hit(r, scene.tb, frame=frame, with_conv=True,
+                                          seed_t=None if s is None else s.detach())[1:],
+            lambda r: flat.any_hit(r, scene.tb, frame=frame, with_conv=True),
+            seeded=True),
+        ("bvh", "path"): _Engine(
+            lambda r, s: packet.closest_hit(r, scene.tb, frame=frame, with_conv=True)[1:],
+            lambda r: packet.any_hit(r, scene.tb, frame=frame, with_conv=True)),
+    }
+    engine = engines.get((trav, cfg.mode) if trav == "bvh" else trav)
+    if engine is None:
+        raise NotImplementedError(f"traversal {trav!r} is not ported")
+    return engine
+
+
 def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
                   seed_t=None) -> Hit:
     """Closest hit over the analytic spheres, planes and triangles and the
     triangle mesh, as the reference's sequential tmax-shrinking fold
-    (``w8e3.wgsl:290-311``). The mesh goes through the brute-force engine
-    (``traversal == "brute"``), the BSP walk (``"bsp"`` with
-    ``bsp_execution != "fast"``), the ``bvh2`` walk or the ``bvh8`` walk,
-    else through the flat engine in direct mode and through the packet
-    engine in path mode (incoherent bounces defeat the flat engine's
-    frustums).
+    (``w8e3.wgsl:290-311``). The mesh goes through its engine
+    (``_mesh_engine``).
 
     ``seed_t``: optional per-ray temporal upper-bound hint for the flat
     engine; exact whatever its quality (see
@@ -314,36 +369,14 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
         geom = scene.geom
         if geom is None:
             return best
-        trav = _effective_traversal(scene, cfg)
+        engine = _mesh_engine(scene, cfg)
         # The traversal carries no gradient: its inputs are detached and it
         # returns integer ids (the accel buffers hold no grads either).
         with torch.no_grad():
             sub = Rays(rays.o.detach(), rays.d.detach(), rays.tmin.detach(),
                        best.t.detach())
-            if trav == "brute":
-                # Engines without caps always converge.
-                _, tri = intersect.mesh_brute_force(sub, geom.vertices, geom.indices)
-                conv = yes
-            elif trav == "bsp":
-                _, tri, conv = bsp_mod.bsp_closest_hit(sub, scene.bsp, geom.vertices, geom.indices,
-                                                       with_conv=True)
-            elif trav == "bvh2":
-                # The JAX package flags no truncation of this walk.
-                _, tri = traverse.bvh_closest_hit(sub, scene.bvh, geom.vertices, geom.indices,
-                                                  max_leaf=cfg.max_leaf)
-                conv = yes
-            elif trav == "bvh8":
-                _, tri, conv = wide.closest_hit(sub, scene.wide, with_conv=True)
-            elif trav != "bvh":
-                raise NotImplementedError(f"traversal {trav!r} is not ported")
-            elif cfg.mode == "direct":
-                _, tri, conv = flat.closest_hit(
-                    sub, scene.tb, frame=_frame(scene, cfg), with_conv=True,
-                    seed_t=None if seed_t is None else seed_t.detach(),
-                )
-            else:
-                _, tri, conv = packet.closest_hit(
-                    sub, scene.tb, frame=_frame(scene, cfg), with_conv=True)
+            tri, conv = engine.closest(sub, seed_t)
+        conv = yes if conv is None else conv
         ok = tri >= 0
         T = geom.indices.shape[0]
         tri_c = tri.long().clamp(0, T - 1)
@@ -398,36 +431,18 @@ def trace_closest(scene: Scene, cfg: SceneConfig, rays: Rays,
 
 def _mesh_only_anyhit(scene: Scene, cfg: SceneConfig, rays: Rays):
     """Trimesh-only occlusion, ``intersect_trimesh_immediate_return`` as the
-    holdout shader uses it (``w9e2.wgsl:514-538``): the brute-force engine's
-    any-hit (which always converges), the BSP, ``bvh2`` or ``bvh8`` walk,
-    or the flat engine's in direct mode and the packet engine's in path
-    mode; nothing blocks without a mesh.
+    holdout shader uses it (``w9e2.wgsl:514-538``): the any-hit query of the
+    mesh's engine (``_mesh_engine``); nothing blocks without a mesh.
     Returns (blocked, converged)."""
     if scene.geom is None:
         no = torch.zeros(rays.o.shape[0], dtype=torch.bool, device=rays.o.device)
         return no, ~no
-    trav = _effective_traversal(scene, cfg)
+    engine = _mesh_engine(scene, cfg)
     with torch.no_grad():
         srays = Rays(rays.o.detach(), rays.d.detach(), rays.tmin.detach(),
                      rays.tmax.detach())
-        geom = scene.geom
-        if trav == "brute":
-            blocked = intersect.mesh_brute_force_anyhit(srays, geom.vertices, geom.indices)
-            return blocked, torch.ones_like(blocked)
-        if trav == "bsp":
-            return bsp_mod.bsp_any_hit(srays, scene.bsp, geom.vertices, geom.indices,
-                                       with_conv=True)
-        if trav == "bvh2":
-            blocked = traverse.bvh_any_hit(srays, scene.bvh, geom.vertices, geom.indices,
-                                           max_leaf=cfg.max_leaf)
-            return blocked, torch.ones_like(blocked)
-        if trav == "bvh8":
-            return wide.any_hit(srays, scene.wide, with_conv=True)
-        if trav != "bvh":
-            raise NotImplementedError(f"traversal {trav!r} is not ported")
-        mod = flat if cfg.mode == "direct" else packet
-        return mod.any_hit(srays, scene.tb, frame=_frame(scene, cfg),
-                           with_conv=True)
+        blocked, conv = engine.any_hit(srays)
+        return blocked, torch.ones_like(blocked) if conv is None else conv
 
 
 def trace_occluded(scene: Scene, cfg: SceneConfig, rays: Rays):
@@ -1071,13 +1086,14 @@ def _loop(scene: Scene, cfg: SceneConfig, rays0: Rays, state0,
 
 def _graphable(scene: Scene, cfg: SceneConfig, carry: tuple) -> bool:
     """Whether ``_loop`` replays its bounce from a CUDA graph: a path-mode
-    wavefront on the card whose mesh takes the brute-force engine (the
-    other engines read back to the host inside a bounce), with autograd
-    off, and with spans off, so that a traced frame still opens every span
-    inside the bounce (it then runs eagerly, bit for bit as the graph)."""
+    wavefront on the card whose mesh's engine reads nothing back to the
+    host inside a query (``host_free``: the brute-force engine), with
+    autograd off, and with spans off, so that a traced frame still opens
+    every span inside the bounce (it then runs eagerly, bit for bit as the
+    graph)."""
     return (carry[0].is_cuda and not obs.SPANS and not torch.is_grad_enabled()
             and cfg.mode == "path" and scene.geom is not None
-            and _effective_traversal(scene, cfg) == "brute")
+            and _mesh_engine(scene, cfg).host_free)
 
 
 def _closure(scene: Scene, cfg: SceneConfig, carry: tuple) -> tuple:
@@ -1234,22 +1250,36 @@ def _jitters(scene: Scene):
     return scene.jitters
 
 
-def render_sample(scene: Scene, cfg: SceneConfig, full_depth: bool = False):
+def _sample(scene: Scene, cfg: SceneConfig, seed_t, seeding: bool, full_depth: bool):
     """One sample pass over the W x H wavefront, or over the rows of the
-    scene's band (no temporal seed).
-    Direct mode averages the stratified sub-samples of ``scene.jitters``
-    (``w3e3.wgsl:150-165``): their sum in order, divided by their count.
-    ``full_depth``: path mode runs all ``max_depth`` bounces (see
-    ``_loop``)."""
+    scene's band. Returns (radiance, seed). Direct mode averages the
+    stratified sub-samples of ``scene.jitters`` (``w3e3.wgsl:150-165``):
+    their sum in order, divided by their count. With ``seeding``, a single
+    bounce on an engine that takes the seed starts from ``seed_t`` and each
+    sub-sample from the one before it; elsewhere ``seed_t`` passes
+    through."""
     if cfg.mode == "path":
         rays, state = _path_primary(scene, cfg)
-        return bounce_loop(scene, cfg, rays, state, full_depth=full_depth)[0]
+        return bounce_loop(scene, cfg, rays, state, full_depth=full_depth)[0], seed_t
+    seeding = seeding and _single_bounce(cfg) and scene.tb is not None \
+        and _mesh_engine(scene, cfg).seeded
     jitters = _jitters(scene)
     state = _direct_states(scene, cfg)
     acc = torch.zeros((lanes(scene, cfg), 3), dtype=torch.float32, device=scene.device)
     for i in range(jitters.shape[0]):
-        acc = acc + bounce_loop(scene, cfg, primary_rays(scene, cfg, jitters[i]), state)[0]
-    return vec.div(acc, float(jitters.shape[0]))
+        res, seed = bounce_loop(scene, cfg, primary_rays(scene, cfg, jitters[i]), state,
+                                seed_t=seed_t if seeding else None)
+        if seeding:
+            seed_t = seed
+        acc = acc + res
+    return vec.div(acc, float(jitters.shape[0])), seed_t
+
+
+def render_sample(scene: Scene, cfg: SceneConfig, full_depth: bool = False):
+    """One sample pass over the W x H wavefront, or over the rows of the
+    scene's band (no temporal seed; see ``_sample``). ``full_depth``: path
+    mode runs all ``max_depth`` bounces (see ``_loop``)."""
+    return _sample(scene, cfg, None, False, full_depth)[0]
 
 
 def render_sample_seeded(scene: Scene, cfg: SceneConfig, seed_t):
@@ -1258,19 +1288,9 @@ def render_sample_seeded(scene: Scene, cfg: SceneConfig, seed_t):
     from the one before it. Returns (radiance, next_seed); the radiance
     equals the unseeded render's, since lanes whose hint undershoots are
     re-traced by the repair pass. Scenes of more than one bounce, and
-    meshes off the treelet engines, are not seeded: their seed passes
+    meshes off the flat engine, are not seeded: their seed passes
     through."""
-    if not _single_bounce(cfg) or scene.tb is None \
-            or _effective_traversal(scene, cfg) != "bvh":
-        return render_sample(scene, cfg), seed_t
-    jitters = _jitters(scene)
-    state = _direct_states(scene, cfg)
-    acc = torch.zeros((lanes(scene, cfg), 3), dtype=torch.float32, device=scene.device)
-    for i in range(jitters.shape[0]):
-        res, seed_t = bounce_loop(scene, cfg, primary_rays(scene, cfg, jitters[i]), state,
-                                  seed_t=seed_t)
-        acc = acc + res
-    return vec.div(acc, float(jitters.shape[0])), seed_t
+    return _sample(scene, cfg, seed_t, True, False)
 
 
 def accumulate(result, accum, iteration: int):
