@@ -3,9 +3,10 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 1. probe    — a CUDA device must be visible; prints its name and power limit;
-2. build    — compiles the four kernels (``tracer_torch/csrc``: super-tile
-              hits B1, vertex-cotangent placement B2, treelet hits B3, and
-              B1's any-hit query ``super_occluded``) with nvcc for sm_90a,
+2. build    — compiles the six kernels (``tracer_torch/csrc``: super-tile
+              hits B1, vertex-cotangent placement B2, treelet hits B3,
+              B1's any-hit query ``super_occluded``, packet phase A's walk
+              and the brute-force engine's ``brute_hits``) with nvcc for sm_90a,
               in parallel, and prints their register and shared memory use;
 3. kernel   — each kernel against its plain-PyTorch twin on the card. B1 and
               B3 in both modes, on synthetic emissions (``synthetic``,
@@ -84,15 +85,19 @@ Phases (each raises on failure, so the script exits non-zero):
               12-triangle Cornell box of ``with_fixture_model``, two
               spheres, next-event estimation over the light quad, the
               dielectric with absorption), which takes the brute-force
-              engine (plain PyTorch by design: no hand kernel), through 1
+              engine (its kernel ``brute_hits``, one launch a query), through 1
               warm-up and 10 timed ``progressive.step`` frames: ms/frame by
               CUDA events and by the host clock and primary Mpath/s; one
               frame with spies (bounces, ray segments and shadow rays) and
               one under ``torch.profiler`` (kernels, device busy time, idle
               share); the brute-force engine's closest-hit and any-hit
-              queries of bounce 2 alone, by CUDA events and the profiler,
-              beside their bound. Checks: no lane was truncated, the accumulator is
-              finite and non-negative, no hand kernel and no twin ran, and a
+              queries of bounce 2 alone, kernel and twin, by CUDA events and
+              the profiler, beside their bound. Checks: no lane was
+              truncated, the accumulator is finite and non-negative, every
+              brute-force pair of the timed frames ran in the kernel, one
+              launch a query in the instrumented frame, no other hand kernel
+              and no twin ran, the kernel equals its twin bit for bit on
+              bounce 2's queries, and a
               32x32 frame agrees with the JAX package's numbers
               (``CORNELL_REF``). Then ``W8 E1`` and ``W8 E2 Cornell Box
               Balls`` at 512x512 and ``W7 E3 Cornell Box`` at 128x128, 1
@@ -107,7 +112,8 @@ Phases (each raises on failure, so the script exits non-zero):
               timed ``remat="full"`` step beside it. Checks: every leaf
               finite, the diffuse, emission, vertex, sphere-center and eye
               gradients nonzero, two steps (and the remat step) equal bit
-              for bit, no hand kernel and no twin launched, ``fd_check`` on
+              for bit, no hand kernel but ``brute_hits`` and no twin
+              launched, ``fd_check`` on
               the diffuse albedo at 64x64, and a 16x16 gradient against the
               JAX package's numbers (``CORNELL_GRAD_REF``). Then ``W9 E1
               Bunny`` at 256x256 (cut from 512x512), depth 50, seeded
@@ -240,7 +246,9 @@ and 16 and the CLI's frames of phase 12; B2's the steps of phases 5, 9, 14
 and 16; B3's the frames and steps of phases 6, 9 and 11 and the 3-band W9
 E1 frame of phase 16; the any-hit query's the shadowed dragon's counted
 frames of phase 10 and steps of phase 14 (its ``max_abs_err`` counts
-lanes that differ from the plain twin route).
+lanes that differ from the plain twin route); the brute-force kernel's the
+queries of phase 8's timed frames (graph replays, counted by
+``brute.kernel_pairs``).
 
 Prints one JSON object of per-kernel results on the line before the last,
 and ``{"ok": true, "device": {...}}`` as the last line. Imports nothing of
@@ -1578,35 +1586,53 @@ def cornell_instrumented(scene, cfg, state) -> dict:
     return rec
 
 
-def brute_times(rec, card: str) -> None:
+def brute_times(rec, card: str) -> dict:
     """The brute-force engine alone on bounce 2's closest-hit and any-hit
-    queries of ``rec``: ms per call by CUDA events over back-to-back calls
-    and device ms by the profiler, beside the bound (every input read once,
-    the output written once, ``OPS_PER_TEST`` per (ray, triangle) pair;
-    the engine tests every lane, live or not)."""
+    queries of ``rec``: the kernel (``brute_hits``) and its plain twin, ms
+    per call by CUDA events over back-to-back calls and device ms by the
+    profiler, beside the bound (every input read once, the output written
+    once, ``OPS_PER_TEST`` per (ray, triangle) pair; the engine tests every
+    lane, live or not). Raises unless the kernel's results equal the
+    twin's bit for bit. Returns the times by query."""
     from tracer_torch.kernels import intersect
 
-    for key, fn in (("closest", intersect.mesh_brute_force),
-                    ("any-hit", intersect.mesh_brute_force_anyhit)):
+    out = {}
+    for key, fn, twin in (("closest", intersect.mesh_brute_force,
+                           intersect.mesh_brute_force_reference),
+                          ("any-hit", intersect.mesh_brute_force_anyhit,
+                           intersect.mesh_brute_force_anyhit_reference)):
         rays, verts, idx = rec["brute_args"][key]
-        call = lambda: fn(rays, verts, idx)
-        out = call()
-        ms = cuda_events_ms(call, 20)
-        dev_ms = profiled_device_ms(call, 20, "elementwise")
+        call, plain = lambda: fn(rays, verts, idx), lambda: twin(rays, verts, idx)
+        got, want = call(), plain()
+        got, want = ((got, want) if isinstance(got, tuple) else ((got,), (want,)))
+        bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)):
+            raise AssertionError(f"the brute-force {key} kernel differs from its twin")
+        ms, plain_ms = cuda_events_ms(call, 20), cuda_events_ms(plain, 20)
+        dev_ms = profiled_device_ms(call, 20, "brute_hits")
+        plain_dev_ms = profiled_device_ms(plain, 20, "elementwise")
         n, T = rays.o.shape[0], idx.shape[0]
-        outs = out if isinstance(out, tuple) else (out,)
-        b_ms, b_by = bound_ms(nbytes(rays.o, rays.d, rays.tmin, rays.tmax, verts, idx, *outs),
+        b_ms, b_by = bound_ms(nbytes(rays.o, rays.d, rays.tmin, rays.tmax, verts, idx, *got),
                               n * T * OPS_PER_TEST)
         live = float((rays.tmax > rays.tmin).float().mean())
         log(f"[cornell] brute-force {key} at bounce 2 ({n} lanes, {live:.1%} with a non-empty "
-            f"window; {T} triangles): {ms:.4f} ms per call (CUDA events), {dev_ms:.4f} ms "
-            f"device (profiler), bound {b_ms:.4f} ms ({b_by}); {rec['brute_calls']} brute-force "
-            f"calls in the frame; {card}")
+            f"window; {T} triangles): kernel {ms:.4f} ms per call (CUDA events), {dev_ms:.4f} "
+            f"ms device (profiler); twin {plain_ms:.4f} ms, {plain_dev_ms:.4f} ms device; "
+            f"bound {b_ms:.4f} ms ({b_by}); equal bit for bit; {rec['brute_calls']} "
+            f"brute-force calls in the frame; {card}")
+        out[key.replace("-", "_")] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                          plain_device_ms=plain_dev_ms, bound_ms=b_ms,
+                                          bound_by=b_by)
+    return out
 
 
-def cornell_phase(dev, card: str, kernels) -> None:
+def cornell_phase(dev, card: str, kernels) -> dict:
     """Phase 8: path mode in the Cornell box on the brute-force engine (see
-    the module docstring). Raises on any failed check."""
+    the module docstring). Raises on any failed check. Returns the
+    brute-force kernel's times (``brute_times``) and its launches in the
+    timed frames."""
+    from tracer_torch import obs
+    from tracer_torch.kernels import brute_hits
     from tracer_torch.render import progressive
     from tracer_torch.scenes.build import build_scene
     from tracer_torch.scenes.registry import get_scene
@@ -1628,6 +1654,8 @@ def cornell_phase(dev, card: str, kernels) -> None:
         state = progressive.init_state(cfg, dev)
         progressive.step(scene, cfg, state)
         torch.cuda.synchronize()
+        names = ("brute.pairs", "brute.kernel_pairs")
+        c0 = obs.counters()
         t0 = time.perf_counter()
         start.record()
         for _ in range(frames):
@@ -1636,7 +1664,16 @@ def cornell_phase(dev, card: str, kernels) -> None:
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) / frames * 1e3
         ms = start.elapsed_time(end) / frames
+        pairs, kernel_pairs = (obs.counters().get(k, 0) - c0.get(k, 0) for k in names)
+        if not pairs or kernel_pairs != pairs:
+            raise AssertionError(f"{name}: {kernel_pairs} of {pairs} brute-force pairs in the "
+                                 "timed frames ran in the kernel")
+        launches = brute_hits.KERNEL_LAUNCHES
         rec = cornell_instrumented(scene, cfg, state)
+        if brute_hits.KERNEL_LAUNCHES - launches != rec["brute_calls"]:
+            raise AssertionError(f"{name}: {brute_hits.KERNEL_LAUNCHES - launches} brute-force "
+                                 f"launches for {rec['brute_calls']} queries")
+        rec["launches"] = kernel_pairs // (cfg.width * cfg.height * scene.geom.indices.shape[0])
         acc = state.accum
         log(f"[cornell] {name} {cfg.width}x{cfg.height}, max_depth {cfg.max_depth}, "
             f"{scene.geom.indices.shape[0]} triangles, "
@@ -1646,7 +1683,8 @@ def cornell_phase(dev, card: str, kernels) -> None:
             f"instrumented frame ({rec['frame_host_ms']:.3f} ms, host clock): {rec['bounces']} "
             f"bounces, {rec['segments']} ray segments ({rec['segments'] / (ms * 1e3):.3f} M "
             f"segments/s at the timed ms/frame), {rec['shadow']} shadow rays, truncated lanes "
-            f"{rec['bad']}; {card}")
+            f"{rec['bad']}; brute-force kernel launches in the timed frames {rec['launches']}; "
+            f"{card}")
         if rec["bad"]:
             raise AssertionError(f"{name}: {rec['bad']} lanes were truncated")
         if acc.shape != (cfg.width * cfg.height, 3) or not bool(torch.isfinite(acc).all()) \
@@ -1655,7 +1693,8 @@ def cornell_phase(dev, card: str, kernels) -> None:
         if state.iteration != frames + 2:
             raise AssertionError(f"{name}: iteration {state.iteration} after {frames + 2} steps")
         if [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in kernels] != counts:
-            raise AssertionError(f"{name} ran a hand kernel or a twin")
+            raise AssertionError(f"{name} ran a hand kernel other than the brute-force one, "
+                                 "or a twin")
         return scene, cfg, state, rec
 
     # 8a. The main path: W8 E3 at full registry size.
@@ -1670,7 +1709,8 @@ def cornell_phase(dev, card: str, kernels) -> None:
             f"{prof['idle']:.1%}); {card}")
     else:
         log("[cornell] the profiler recorded no device time")
-    brute_times(rec, card)
+    times = brute_times(rec, card)
+    launches = rec["launches"]
 
     # 8b. A 32x32 frame against the JAX package's numbers.
     sscene, scfg = build_scene(sized("W8 E3 Absorption", 32), dev)
@@ -1684,7 +1724,8 @@ def cornell_phase(dev, card: str, kernels) -> None:
     # 8c. The other Cornell rows of the slice.
     for name, size in (("W8 E1 Cornell Box Balls", 512), ("W8 E2 Cornell Box Balls", 512),
                        ("W7 E3 Cornell Box", 128)):
-        run(name, size, 3)
+        launches += run(name, size, 3)[3]["launches"]
+    return dict(times=times, launches=launches)
 
 
 def same_but_config(a, b) -> bool:
@@ -2434,8 +2475,8 @@ def dgrad_phase(dev, card: str, kernels, dragon) -> dict:
     check_queries("shadowed dragon steps", queries, super_hits.hits2)
 
     # 14c. One step each of W5 E5, W6 E3 and W3 E3 (textured) at their
-    # registered sizes; no hand kernel (the Cornell box takes one-hot
-    # products, worksheet 3 has no mesh).
+    # registered sizes; no hand kernel but the brute-force engine's (the
+    # Cornell box takes one-hot products, worksheet 3 has no mesh).
     def textured(scene):
         return dataclasses.replace(
             scene, texture=tex.TextureBuf(torch.as_tensor(seeded_texture(), device=scene.device),
@@ -2928,8 +2969,8 @@ def main() -> int:
     from tracer_torch.accel import flat, packet
     from tracer_torch.diff import grad as G
     from tracer_torch.geometry.device import refresh_tri_table
-    from tracer_torch.kernels import (phase_a_walk, scatter_vn, super_hits, super_occluded,
-                                      treelet_hits)
+    from tracer_torch.kernels import (brute_hits, phase_a_walk, scatter_vn, super_hits,
+                                      super_occluded, treelet_hits)
     from tracer_torch.render import integrator, progressive
     from tracer_torch.scenes.build import build_scene
     from tracer_torch.scenes.registry import get_scene
@@ -2947,7 +2988,7 @@ def main() -> int:
         t = time.perf_counter()
         return mod.build()[1], time.perf_counter() - t
 
-    built = (*kernels, phase_a_walk)
+    built = (*kernels, phase_a_walk, brute_hits)
     with ThreadPoolExecutor(len(built)) as pool:
         builds = list(pool.map(timed_build, built))
     for mod, (build_log, secs) in zip(built, builds):
@@ -3446,15 +3487,15 @@ def main() -> int:
         f"_body eager {walk_plain_ms:.3f} ms, "
         f"bound {walk_bound_ms:.4f} ms ({walk_by}; {walk_work}); {card}")
 
-    # 8. Path mode in the Cornell box (the brute-force engine; no hand kernel).
-    cornell_phase(dev, card, kernels)
+    # 8. Path mode in the Cornell box (the brute-force engine and its kernel).
+    cb = cornell_phase(dev, card, kernels)
 
-    # 9. Path-mode gradients: W8 E3 (no hand kernel) and W9 E1 (B3 and B2).
+    # 9. Path-mode gradients: W8 E3 (the brute-force kernel) and W9 E1 (B3 and B2).
     pg = pgrad_phase(dev, card, kernels)
     b2_err = max(b2_err, pg["b2_err"])
 
     # 10. Direct mode: the dragon rows through B1 (closest and any-hit), the
-    # Cornell rows and worksheets 1-3 (no hand kernel).
+    # Cornell rows (the brute-force kernel) and worksheets 1-3 (no hand kernel).
     dr = direct_phase(dev, card, kernels, (scene, cfg, desc, rays, ids_k))
     max_err = max(max_err, dr["b1_err"])
 
@@ -3469,7 +3510,7 @@ def main() -> int:
     hdr_phase(dev, card)
 
     # 14. Direct-mode gradients: W6 E1 Dragon and the shadowed stand-in
-    # (B1 and B2), the Cornell rows and worksheet 3 (no hand kernel).
+    # (B1 and B2), the Cornell rows (the brute-force kernel) and worksheet 3.
     t0 = time.perf_counter()
     dg = dgrad_phase(dev, card, kernels, (scene, cfg, desc, rays, ids_k))
     t1 = time.perf_counter()
@@ -3573,6 +3614,16 @@ def main() -> int:
         "live_tests": dr["occ_live_tests"],
         "sweep_pairs_open": dr["occ_open_pairs"],
         "sweep_pairs": dr["occ_sweep_pairs"],
+        "library_ms": None,
+    }, {
+        "name": "brute_hits.closest / brute_hits.any_hit",
+        "route": "cuda",
+        "source": "tracer_torch/csrc/brute_hits.cu",
+        "replaces": "none (mesh_brute_force is XLA in the JAX package, "
+                    "tracer/kernels/intersect.py)",
+        "launches": cb["launches"],
+        "max_abs_err": 0.0,
+        **{f"{key}_{k}": v for key, t in cb["times"].items() for k, v in t.items()},
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@ module by module, against ``tracer.kernels.intersect`` and
 ``tracer.render.integrator`` on the CPU, on the same seeded NumPy inputs:
 
 * ``mesh_brute_force`` and ``mesh_brute_force_anyhit`` on the Cornell box
-  fixture and on 64 seeded triangles (``chip_smoke.brute_case``);
+  fixture and on 64 seeded triangles (``chip_smoke.brute_case``); on CPU
+  tensors they run their plain twins, never the kernel's wrapper
+  (``kernels/brute_hits``), whose input checks run here too;
 * ``sphere_t`` on random rays, rays exactly tangent to the sphere, origins
   inside it and empty windows (tmin == tmax);
 * ``_area_light_attrs`` and ``_sample_area_light_mc`` on the W8 E3 scene;
@@ -58,8 +60,8 @@ from tracer.render import integrator as jax_integrator
 from tracer.scenes import build_scene as jax_build_scene
 from tracer.scenes import get_scene as jax_get_scene
 
-from tracer_torch import convert
-from tracer_torch.kernels import intersect
+from tracer_torch import convert, obs
+from tracer_torch.kernels import brute_hits, intersect
 from tracer_torch.kernels.intersect import Rays
 from tracer_torch.render import integrator
 from tracer_torch.render.scene import SceneConfig
@@ -464,6 +466,73 @@ def test_trace_occluded_matches_jax(jax_side):
     by_mesh = intersect.mesh_brute_force_anyhit(_rays(o, d, tmin, tmax), scene.geom.vertices,
                                                 scene.geom.indices).numpy()
     assert by_mesh.mean() > 0.05 and (blocked.numpy() & ~by_mesh).mean() > 0.05
+
+
+QUERIES = {"closest": ("mesh_brute_force", "mesh_brute_force_reference", "closest"),
+           "any_hit": ("mesh_brute_force_anyhit", "mesh_brute_force_anyhit_reference", "any_hit")}
+
+
+@pytest.mark.parametrize("query", list(QUERIES))
+def test_cpu_tensors_take_the_twin(monkeypatch, query):
+    """On CPU tensors a query runs its plain twin and never the kernel's
+    wrapper: the same result as the twin's, ``brute.pairs`` counts rays x
+    triangles and ``brute.kernel_pairs`` stays at 0."""
+    entry, twin, kernel = QUERIES[query]
+    verts, idx, *rays, _ = brute_case("seeded64", 2, n=500)
+    args = (_rays(*rays), torch.as_tensor(verts), torch.as_tensor(idx))
+    calls = []
+
+    def refuse(*a):
+        raise AssertionError("the kernel's wrapper was called on CPU tensors")
+
+    def spy(*a, fn=getattr(intersect, twin)):
+        calls.append(1)
+        return fn(*a)
+
+    monkeypatch.setattr(brute_hits, kernel, refuse)
+    monkeypatch.setattr(intersect, twin, spy)
+    obs.reset()
+    try:
+        got = getattr(intersect, entry)(*args)
+        assert calls == [1]
+        assert obs.counters().get("brute.pairs") == 500 * 64
+        assert obs.counters().get("brute.kernel_pairs", 0) == 0
+    finally:
+        obs.reset()
+    want = getattr(intersect, twin)(*args)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+_swap = dataclasses.replace
+# One wrong input at a time, as (rays, vertices, indices) -> the same with it.
+BAD_INPUTS = {
+    "o_float64": lambda r, v, i: (_swap(r, o=r.o.double()), v, i),
+    "o_flat": lambda r, v, i: (_swap(r, o=r.o.reshape(-1)), v, i),
+    "d_two_columns": lambda r, v, i: (_swap(r, d=r.d[:, :2]), v, i),
+    "tmin_short": lambda r, v, i: (_swap(r, tmin=r.tmin[:-1]), v, i),
+    "tmax_int32": lambda r, v, i: (_swap(r, tmax=r.tmax.int()), v, i),
+    "tmax_scalar": lambda r, v, i: (_swap(r, tmax=r.tmax[0]), v, i),
+    "vertices_float64": lambda r, v, i: (r, v.double(), i),
+    "vertices_four_columns": lambda r, v, i: (r, torch.cat([v, v[:, :1]], 1), i),
+    "indices_int64": lambda r, v, i: (r, v, i.long()),
+    "indices_float32": lambda r, v, i: (r, v, i.float()),
+    "indices_two_columns": lambda r, v, i: (r, v, i[:, :2]),
+    "on_the_cpu": lambda r, v, i: (r, v, i),
+}
+
+
+@pytest.mark.parametrize("query", list(QUERIES))
+@pytest.mark.parametrize("bad", list(BAD_INPUTS))
+def test_kernel_wrapper_rejects_what_it_cannot_take(query, bad):
+    """The kernel's wrapper raises ``ValueError`` on a wrong dtype or shape
+    (indices other than int32 included) before it looks at the device, and
+    on CPU tensors that it would otherwise take: it launches on CUDA only."""
+    verts, idx, *rays, _ = brute_case("cornell", 0, n=64)
+    args = BAD_INPUTS[bad](_rays(*rays), torch.as_tensor(verts), torch.as_tensor(idx))
+    match = "CUDA only" if bad == "on_the_cpu" else "wants"
+    with pytest.raises(ValueError, match=match):
+        getattr(brute_hits, QUERIES[query][2])(*args)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Tests that need the card: the CUDA kernels (super-tile hits B1, B1's
 any-hit query ``super_occluded``, vertex-cotangent placement B2, treelet
-hits B3, packet phase A's walk) against their plain-PyTorch twins,
+hits B3, packet phase A's walk, the brute-force engine's ``brute_hits``)
+against their plain-PyTorch twins,
 and the ported frame, gradient steps and path-mode frames on the card
 against the same on the CPU. They skip where PyTorch sees no CUDA device.
 
@@ -45,7 +46,9 @@ Tolerances:
 * The brute-force engine and the Cornell path frames: bit for bit. The
   engine's per-pair Möller test and the shaders use only exactly rounded
   float32 operations and float64 transcendentals, and ``argmin`` keeps the
-  first of equal distances on both devices.
+  first of equal distances on both devices. The engine's kernel
+  (``brute_hits``) against its twins on the card: bit for bit, for the
+  same reasons (its fold keeps argmin's first index).
 * The Cornell path frames with their bounce replayed from a CUDA graph
   against the same frames run eagerly (spans on): bit for bit, since a
   replay launches the eager bounce's kernels on the same inputs.
@@ -86,8 +89,8 @@ from tracer_torch import convert, obs
 from tracer_torch.accel import flat, lbvh, packet, treelet
 from tracer_torch.diff import grad as G
 from tracer_torch.geometry.procedural import bumpy_blob
-from tracer_torch.kernels import (intersect, phase_a_walk, scatter_vn, super_hits,
-                                  super_occluded, treelet_hits)
+from tracer_torch.kernels import (brute_hits, intersect, phase_a_walk, scatter_vn,
+                                  super_hits, super_occluded, treelet_hits)
 from tracer_torch.kernels.intersect import Rays, make_rays
 from tracer_torch.render import integrator, progressive
 from tracer_torch.render import texture as tex
@@ -708,12 +711,110 @@ def test_brute_force_on_card_matches_cpu(cuda, kind):
     assert int((out["cpu"][1] >= 0).sum()) > 1000
 
 
+def _random_mesh(rs, T: int):
+    """``T`` random triangles about the origin: (vertices, indices)."""
+    c = rs.uniform(-1.0, 1.0, (T, 1, 3))
+    verts = (c + rs.normal(0.0, 0.3, (T, 3, 3))).reshape(-1, 3).astype(np.float32)
+    return verts, np.arange(3 * T, dtype=np.int32).reshape(T, 3)
+
+
+def brute_hits_case(name: str, dev):
+    """(rays, vertices, indices) on ``dev`` for the brute-force kernel:
+    ``brute_case``'s Cornell box (12 triangles) and seeded 64 triangles at
+    ray counts that do not fill the last block of 128; random rays on 300
+    random triangles (three staged passes, the last partial); the Cornell
+    box's triangles four times over, so equal t tie across ids and across
+    passes; lanes whose window is empty with tmax a first query's t below
+    tmin; and tmin and tmax expanded from one value (stride 0) beside o and
+    d read through non-contiguous views."""
+    rs = np.random.RandomState(7)
+    t = lambda x: torch.as_tensor(x, device=dev)
+    if name in ("cornell", "seeded64", "empty"):
+        verts, idx, o, d, tmin, tmax, _ = brute_case("seeded64" if name == "seeded64" else
+                                                     "cornell", 3, n=4001)
+    elif name == "random300":
+        verts, idx = _random_mesh(rs, 300)
+        o = (rs.normal(0.0, 1.0, (2999, 3)) * 2.0).astype(np.float32)
+        d = (rs.uniform(-1.0, 1.0, (2999, 3)) - o).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        tmin = np.full(2999, 1e-5, np.float32)
+        tmax = rs.uniform(0.5, 6.0, 2999).astype(np.float32)
+    elif name == "duplicates":
+        verts, idx, o, d, tmin, tmax, _ = brute_case("cornell", 4, n=1000)
+        idx = np.concatenate([idx, idx[::-1], np.tile(idx, (10, 1)), idx])
+    elif name == "stride0":
+        verts, idx, o, d, *_ = brute_case("cornell", 5, n=777)
+        wide = t(np.concatenate([o, d], axis=1))
+        rays = make_rays(wide[:, :3], t(d).t().contiguous().t(), 1e-2, 5000.0)
+        assert rays.tmin.stride() == (0,) and rays.o.stride() == (6, 1)
+        assert rays.d.stride() == (1, 777)
+        return rays, t(verts), t(idx)
+    else:
+        raise ValueError(name)
+    rays = Rays(t(o), t(d), t(tmin), t(tmax))
+    if name == "empty":
+        best, _ = intersect.mesh_brute_force_reference(rays, t(verts), t(idx))
+        lift = t(rs.rand(o.shape[0]) < 0.5)
+        rays = Rays(rays.o, rays.d, torch.where(lift, best + 1.0, rays.tmin), best)
+        assert bool((rays.tmax < rays.tmin).any())
+    return rays, t(verts), t(idx)
+
+
+BRUTE_HITS_CASES = ("cornell", "seeded64", "random300", "duplicates", "empty", "stride0")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BRUTE_HITS_CASES)
+def test_brute_hits_kernel_matches_twin(cuda, name):
+    """The brute-force kernel's closest hit (t and id) and any hit equal their
+    twins run on the card bit for bit, one launch a query, and the counter
+    ``brute.kernel_pairs`` adds rays x triangles a launch."""
+    rays, verts, idx = brute_hits_case(name, cuda)
+    n, T = rays.o.shape[0], idx.shape[0]
+    launches, c0 = brute_hits.KERNEL_LAUNCHES, obs.counters()
+    got = (*intersect.mesh_brute_force(rays, verts, idx),
+           intersect.mesh_brute_force_anyhit(rays, verts, idx))
+    torch.cuda.synchronize()
+    assert brute_hits.KERNEL_LAUNCHES == launches + 2
+    added = {k: obs.counters().get(k, 0) - c0.get(k, 0) for k in ("brute.pairs",
+                                                                  "brute.kernel_pairs")}
+    assert added == {"brute.pairs": 2 * n * T, "brute.kernel_pairs": 2 * n * T}
+    want = (*intersect.mesh_brute_force_reference(rays, verts, idx),
+            intersect.mesh_brute_force_anyhit_reference(rays, verts, idx))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and _bits_equal(a, b)
+    if name == "empty":
+        dead = ~(rays.tmin <= rays.tmax)
+        assert not bool(got[2][dead].any()) and bool(got[2][~dead].any())
+    else:
+        assert int((got[1] >= 0).sum()) > n // 10
+    if name == "duplicates":
+        assert not bool((got[1] >= 12).any())  # ties keep the first copy
+
+
+@pytest.mark.cuda
+def test_brute_hits_kernel_rejects_what_it_cannot_take(cuda):
+    """On the card the wrapper raises ``ValueError`` for a mesh on another
+    device than the rays, and a query of no rays launches nothing."""
+    rays, verts, idx = brute_hits_case("cornell", cuda)
+    with pytest.raises(ValueError):
+        brute_hits.closest(rays, verts.cpu(), idx)
+    with pytest.raises(ValueError):
+        brute_hits.any_hit(rays, verts, idx.cpu())
+    launches = brute_hits.KERNEL_LAUNCHES
+    none = Rays(*(x[:0] for x in (rays.o, rays.d, rays.tmin, rays.tmax)))
+    t, ids = brute_hits.closest(none, verts, idx)
+    assert t.shape == ids.shape == (0,) and brute_hits.any_hit(none, verts, idx).shape == (0,)
+    assert brute_hits.KERNEL_LAUNCHES == launches
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,size", [("W8 E3 Absorption", 64), ("W7 E3 Cornell Box", 32)])
 def test_cornell_frames_on_card_match_cpu(cuda, name, size):
     """Two path-mode progressive steps in the Cornell box (the brute-force
     engine, spheres, area-light NEE and the dielectric) give the same
-    accumulator on the card as on the CPU, and launch no hand kernel."""
+    accumulator on the card as on the CPU, and launch no hand kernel but
+    the brute-force engine's."""
     desc = with_fixture_model(get_scene(name))
     desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=size, height=size))
     mods = (super_hits, scatter_vn, treelet_hits)
@@ -722,7 +823,9 @@ def test_cornell_frames_on_card_match_cpu(cuda, name, size):
     for dev in ("cpu", cuda):
         scene, cfg = build_scene(desc, dev)
         assert cfg.traversal == "brute" and scene.tb is None
+        launches = brute_hits.KERNEL_LAUNCHES
         accs[str(dev)] = progressive.render_progressive(scene, cfg, 2).accum
+        assert (brute_hits.KERNEL_LAUNCHES > launches) == (dev != "cpu")
     assert _bits_equal(accs["cpu"], accs[str(cuda)])
     assert float(accs["cpu"].max()) > 0 and bool((accs["cpu"] >= 0).all())
     assert [(m.KERNEL_LAUNCHES, m.REFERENCE_CALLS) for m in mods] == counts
@@ -735,13 +838,17 @@ def test_cornell_bounce_graph_replays_as_the_eager_bounce(cuda, name):
     """Path frames on the brute-force engine replay their bounce from a CUDA
     graph while spans are off and run it eagerly while spans are on: three
     64x64 frames each way give the same accumulator bit for bit and the
-    same bounce and ``brute.pairs`` counts; the graph is captured on the
-    first frame only and replayed once a bounce."""
+    same bounce, ``brute.pairs`` and ``brute.kernel_pairs`` counts (every
+    query runs the brute-force kernel, inside the graph too); the graph is
+    captured on the first frame only and replayed once a bounce. An eager
+    frame launches the kernel once a query; a replayed one launches it from
+    the graph, so the wrapper is not called."""
     desc = with_fixture_model(get_scene(name))
     desc = dataclasses.replace(desc, cfg=dataclasses.replace(desc.cfg, width=64, height=64))
     scene, cfg = build_scene(desc, cuda)
     names = ("integrator.bounce_graph_captures", "integrator.bounce_graph_replays",
-             "integrator.bounces", "brute.pairs")
+             "integrator.bounces", "brute.pairs", "brute.kernel_pairs")
+    pair_per_query = 64 * 64 * scene.geom.indices.shape[0]
     runs = []
     for spans in (False, True):
         obs.enabled(spans)
@@ -749,9 +856,10 @@ def test_cornell_bounce_graph_replays_as_the_eager_bounce(cuda, name):
             st = progressive.init_state(cfg, cuda)
             seen = []
             for _ in range(3):
-                c0 = obs.counters()
+                c0, launches = obs.counters(), brute_hits.KERNEL_LAUNCHES
                 progressive.step(scene, cfg, st)
-                seen.append([obs.counters().get(k, 0) - c0.get(k, 0) for k in names])
+                seen.append([obs.counters().get(k, 0) - c0.get(k, 0) for k in names]
+                            + [brute_hits.KERNEL_LAUNCHES - launches])
         finally:
             obs.enabled(False)
         runs.append((st.accum, seen))
@@ -760,7 +868,10 @@ def test_cornell_bounce_graph_replays_as_the_eager_bounce(cuda, name):
     assert float(eager.max()) > 0
     assert [c[0] for c in g] == [1, 0, 0] and all(c[1] == c[2] > 0 for c in g)
     assert all(c[0] == c[1] == 0 for c in e)
-    assert [c[2:] for c in g] == [c[2:] for c in e] and all(c[3] > 0 for c in e)
+    assert [c[2:5] for c in g] == [c[2:5] for c in e] and all(c[3] > 0 for c in e)
+    assert all(c[3] == c[4] for c in g + e)
+    assert [c[5] for c in g[1:]] == [0, 0]
+    assert all(c[5] * pair_per_query == c[4] for c in e)
 
 
 @pytest.mark.cuda
@@ -768,7 +879,8 @@ def test_w8e3_path_gradient_on_card_matches_cpu(cuda):
     """The W8 E3 path gradient at 64x64 (``loop="scan"``, target zeros): two
     card runs equal bit for bit, one more equal to them under
     ``torch.use_deterministic_algorithms`` with no warning but cuBLAS's
-    workspace note, no hand kernel launched, and the card's gradient
+    workspace note, no hand kernel but the brute-force engine's launched,
+    and the card's gradient
     within rtol 1e-4 and an atol of 1e-5 of each leaf's largest magnitude
     of the CPU's (the backward's reductions sum in other orders)."""
     import warnings

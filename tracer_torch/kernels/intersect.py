@@ -13,7 +13,10 @@ keeps the card's result equal to the CPU's bit for bit.
 The brute-force engine's two queries run under the spans ``brute.closest``
 and ``brute.occluded`` (``tracer_torch.obs``); each call adds its rays
 times the mesh's triangles, read from the shapes, to the counter
-``brute.pairs``.
+``brute.pairs``. On CUDA tensors each query is one launch of the hand
+kernel ``tracer_torch.kernels.brute_hits`` (which counts
+``brute.kernel_pairs``); on CPU tensors it runs its plain twin,
+``mesh_brute_force_reference`` or ``mesh_brute_force_anyhit_reference``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from tracer_torch import obs
+from tracer_torch.kernels import brute_hits
 from tracer_torch.math import vec
 
 INF = 3.0e38
@@ -169,35 +173,52 @@ def _chunks(n_rays: int, T: int):
 def mesh_brute_force(rays: Rays, vertices, indices):
     """Closest hit over every triangle of the mesh (the reference's brute-force
     loop, ``w5e2.wgsl:230-240``): (t, tri_id), with tri_id == -1 and t =
-    tmax on a miss. Of the hits with t <= tmax it takes the least t, and of
-    equal t the lowest triangle id, and it keeps a hit only where that t is
-    below tmax, as the JAX package's ``argmin`` over chunks does."""
+    tmax on a miss. The hand kernel on CUDA tensors, the twin on CPU
+    tensors."""
     obs.count("brute.pairs", rays.o.shape[0] * indices.shape[0])
     with obs.span("brute.closest"):
-        tri = _triangle_terms(vertices, indices)
-        starts, step = _chunks(rays.o.shape[0], tri[0].shape[0])
-        best_t = rays.tmax
-        best_id = torch.full_like(rays.tmax, -1, dtype=torch.int32)
-        for lo in starts:
-            t, ok = _pair_hits(rays, [x[lo:lo + step] for x in tri], best_t)
-            t = torch.where(ok, t, INF)
-            j = torch.argmin(t, dim=1)
-            t_best = torch.take_along_dim(t, j[:, None], dim=1)[:, 0]
-            better = t_best < best_t
-            best_t = torch.where(better, t_best, best_t)
-            best_id = torch.where(better, (j + lo).to(torch.int32), best_id)
-        return best_t, best_id
+        if rays.o.is_cuda:
+            return brute_hits.closest(rays, vertices, indices)
+        return mesh_brute_force_reference(rays, vertices, indices)
 
 
 def mesh_brute_force_anyhit(rays: Rays, vertices, indices):
     """Any-hit (shadow) variant: whether some triangle has a hit with tmin <=
-    t <= tmax (``intersect_trimesh_immediate_return``, ``bsp.wgsl:83-155``)."""
+    t <= tmax (``intersect_trimesh_immediate_return``, ``bsp.wgsl:83-155``).
+    The hand kernel on CUDA tensors, the twin on CPU tensors."""
     obs.count("brute.pairs", rays.o.shape[0] * indices.shape[0])
     with obs.span("brute.occluded"):
-        tri = _triangle_terms(vertices, indices)
-        starts, step = _chunks(rays.o.shape[0], tri[0].shape[0])
-        blocked = torch.zeros_like(rays.tmax, dtype=torch.bool)
-        for lo in starts:
-            _, ok = _pair_hits(rays, [x[lo:lo + step] for x in tri], rays.tmax)
-            blocked = blocked | ok.any(dim=1)
-        return blocked
+        if rays.o.is_cuda:
+            return brute_hits.any_hit(rays, vertices, indices)
+        return mesh_brute_force_anyhit_reference(rays, vertices, indices)
+
+
+def mesh_brute_force_reference(rays: Rays, vertices, indices):
+    """``mesh_brute_force`` in plain PyTorch, the kernel's twin. Of the hits
+    with t <= tmax it takes the least t, and of equal t the lowest triangle
+    id, and it keeps a hit only where that t is below tmax, as the JAX
+    package's ``argmin`` over chunks does."""
+    tri = _triangle_terms(vertices, indices)
+    starts, step = _chunks(rays.o.shape[0], tri[0].shape[0])
+    best_t = rays.tmax
+    best_id = torch.full_like(rays.tmax, -1, dtype=torch.int32)
+    for lo in starts:
+        t, ok = _pair_hits(rays, [x[lo:lo + step] for x in tri], best_t)
+        t = torch.where(ok, t, INF)
+        j = torch.argmin(t, dim=1)
+        t_best = torch.take_along_dim(t, j[:, None], dim=1)[:, 0]
+        better = t_best < best_t
+        best_t = torch.where(better, t_best, best_t)
+        best_id = torch.where(better, (j + lo).to(torch.int32), best_id)
+    return best_t, best_id
+
+
+def mesh_brute_force_anyhit_reference(rays: Rays, vertices, indices):
+    """``mesh_brute_force_anyhit`` in plain PyTorch, the kernel's twin."""
+    tri = _triangle_terms(vertices, indices)
+    starts, step = _chunks(rays.o.shape[0], tri[0].shape[0])
+    blocked = torch.zeros_like(rays.tmax, dtype=torch.bool)
+    for lo in starts:
+        _, ok = _pair_hits(rays, [x[lo:lo + step] for x in tri], rays.tmax)
+        blocked = blocked | ok.any(dim=1)
+    return blocked
