@@ -24,6 +24,7 @@ import torch
 
 from tracer_torch import obs
 from tracer_torch.geometry.device import AnalyticTriangles, GeometryBuffers, MaterialTable, Planes
+from tracer_torch.math import vec
 from tracer_torch.render import integrator
 from tracer_torch.render.camera import Camera
 from tracer_torch.render.scene import Scene, SceneConfig, Spheres, Uniforms
@@ -115,7 +116,7 @@ def render_mean(scene: Scene, cfg: SceneConfig, num_samples: int = 1):
                       device=scene.device)
     for it in range(num_samples):
         acc = acc + render_radiance(scene, cfg, it)
-    return acc / torch.tensor(float(num_samples), device=scene.device)
+    return vec.div(acc, float(num_samples))
 
 
 def l2_loss(scene: Scene, cfg: SceneConfig, target, num_samples: int = 1):
@@ -128,15 +129,25 @@ def scene_grads(scene: Scene, loss_fn) -> Scene:
     return _grad_scene_of(scene, _leaf_grads(scene, loss_fn))
 
 
+def _allocated(device) -> int:
+    """Bytes the caching allocator holds for tensors on ``device`` (a host
+    counter: no sync); 0 off the card."""
+    return torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+
+
 def _leaf_grads(scene: Scene, loss_fn) -> dict:
-    """{key: gradient} of ``loss_fn(scene)`` over ``float_leaves(scene)``."""
+    """{key: gradient} of ``loss_fn(scene)`` over ``float_leaves(scene)``.
+    Adds to the counter ``grad.held_bytes`` the device memory the forward
+    leaves allocated for the backward (0 off the card)."""
     keys = float_leaves(scene)
     # Fresh leaves on the same storage; the derived table takes no gradient.
     leaves = {k: leaf(scene, k).detach().requires_grad_(k != "geom.tri_table") for k in keys}
     wrt = [k for k in keys if leaves[k].requires_grad]
+    before = _allocated(scene.device)
     with torch.enable_grad():
         with obs.span("grad.forward"):
             loss = loss_fn(with_leaves(scene, leaves))
+        obs.count("grad.held_bytes", _allocated(scene.device) - before)
         # A frame of background alone (W1 E1-E3) reaches no leaf.
         with obs.span("grad.backward"):
             grads = torch.autograd.grad(loss, [leaves[k] for k in wrt], allow_unused=True) \

@@ -2,9 +2,10 @@
 
 Hit attributes are fetched with one row gather from the per-triangle table
 (``fetch_tri_rows``), whose backward places the corner cotangents into the
-canonical vertex and normal buffers through the ``scatter_vn`` kernel. The
-JAX package's scatter modes and its TPU-link upload packing are TPU and
-sharding workarounds and are not ported.
+canonical vertex and normal buffers through the ``scatter_vn`` kernel, under
+the span ``grad.place`` (the sort and the placement). The JAX package's
+scatter modes and its TPU-link upload packing are TPU and sharding
+workarounds and are not ported.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from tracer_torch import obs
 from tracer_torch.geometry.obj import MeshData
 from tracer_torch.kernels.scatter_vn import scatter_add_vn
 
@@ -140,8 +142,10 @@ class _FetchTriRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        idx, tri_c = ctx.saved_tensors
-        dvn = _scatter_add_vn(idx[tri_c], _corner_cotangents(g), ctx.n_vertices)
+        # On the card the autograd engine's own thread runs this.
+        with obs.span("grad.place"):
+            idx, tri_c = ctx.saved_tensors
+            dvn = _scatter_add_vn(idx[tri_c], _corner_cotangents(g), ctx.n_vertices)
         return dvn[:, 0:3], dvn[:, 3:6], None, None, None
 
 

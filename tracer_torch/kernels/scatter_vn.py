@@ -17,7 +17,10 @@ into a dense (V, 6) table (vertex xyz, normal xyz).
   bit for bit; on the card it adds with atomics in no fixed order.
 
 ``KERNEL_LAUNCHES`` counts kernel launches and ``REFERENCE_CALLS`` calls of
-the twin, so a run can show which one served it.
+the twin, so a run can show which one served it. Each call of
+``segment_place``, on either device, adds the rows it places and the rows
+of the table it writes (V) to the counters ``scatter_vn.rows`` and
+``scatter_vn.out_rows`` (``tracer_torch.obs``), from the shapes.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import functools
 
 import torch
 
+from tracer_torch import obs
 from tracer_torch._build import CSRC, nvcc_command, shared_library
 
 KERNEL_LAUNCHES = 0
@@ -63,6 +67,8 @@ def segment_place(sids: torch.Tensor, svals: torch.Tensor, V: int) -> torch.Tens
     chunk are summed in stream order from 0.0, and a vertex's result is its
     chunk partials summed in chunk order from 0.0.
     """
+    obs.count("scatter_vn.rows", int(sids.shape[0]))
+    obs.count("scatter_vn.out_rows", int(V))
     if svals.device.type == "cpu":
         return segment_place_reference(sids, svals, V)
     if svals.device.type != "cuda":
