@@ -3,10 +3,11 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 1. probe    — a CUDA device must be visible; prints its name and power limit;
-2. build    — compiles the six kernels (``tracer_torch/csrc``: super-tile
+2. build    — compiles the seven kernels (``tracer_torch/csrc``: super-tile
               hits B1, vertex-cotangent placement B2, treelet hits B3,
-              B1's any-hit query ``super_occluded``, packet phase A's walk
-              and the brute-force engine's ``brute_hits``) with nvcc for sm_90a,
+              B1's any-hit query ``super_occluded``, packet phase A's walk,
+              the brute-force engine's ``brute_hits`` and the texel-cotangent
+              placement ``texel_place``) with nvcc for sm_90a,
               in parallel, and prints their register and shared memory use;
 3. kernel   — each kernel against its plain-PyTorch twin on the card. B1 and
               B3 in both modes, on synthetic emissions (``synthetic``,
@@ -80,7 +81,13 @@ Phases (each raises on failure, so the script exits non-zero):
               super-tile; for B3 two bounds:
               over the live lanes' tests, and over all 128 lanes of every
               visit); B2 also by the profiler's device time, and it must not
-              be slower than ``index_add_``;
+              be slower than ``index_add_``; ``texel_place`` on one 512x512
+              W9 E1 lookup (``texel_stream``: 1,048,576 rows onto 2,048
+              texels, crowded as a first bounce's camera rays) checked
+              against its twin bitwise, then kernel (events and the
+              profiler), byte bound, twin, the whole backward it serves
+              (sort, permutation, kernel) and PyTorch's index backward,
+              ``index_put_(accumulate=True)``, which it must beat;
 8. cornell  — ``W8 E3 Absorption`` at 512x512 (path mode, depth 10, the
               12-triangle Cornell box of ``with_fixture_model``, two
               spheres, next-event estimation over the light quad, the
@@ -119,12 +126,14 @@ Phases (each raises on failure, so the script exits non-zero):
               Bunny`` at 256x256 (cut from 512x512), depth 50, seeded
               environment: 1 warm-up and 2 timed steps (ms/step, peak
               memory), bounces, B3's and B2's launches and B2's rows per
-              launch; checks that B3 ran on every bounce and B2 once per
+              launch; checks that B3 ran on every bounce, B2 once per
               bounce but the last (whose rows reach nothing that the loss
-              reads), no twin ran, every leaf is finite and two steps agree
+              reads) and ``texel_place`` once per bounce on 4 taps of every
+              lane, no twin ran, every leaf is finite and two steps agree
               bit for bit, and holds B2 against its twin on bounce 2's
               sorted corner stream of the path lanes (with its real
-              cotangents and with seeded ones on the same ids);
+              cotangents and with seeded ones on the same ids) and
+              ``texel_place`` against its twin on bounce 1's lookup;
 10. direct  — direct mode. ``W6 E1 Dragon`` (the ``mix_ka`` ambient) on
               phase 4's built dragon (the descriptors differ in their
               configuration only, which is checked first), 1 warm-up and 10
@@ -248,7 +257,7 @@ E1 frame of phase 16; the any-hit query's the shadowed dragon's counted
 frames of phase 10 and steps of phase 14 (its ``max_abs_err`` counts
 lanes that differ from the plain twin route); the brute-force kernel's the
 queries of phase 8's timed frames (graph replays, counted by
-``brute.kernel_pairs``).
+``brute.kernel_pairs``); ``texel_place``'s the W9 E1 steps of phase 9.
 
 Prints one JSON object of per-kernel results on the line before the last,
 and ``{"ok": true, "device": {...}}`` as the last line. Imports nothing of
@@ -1062,6 +1071,99 @@ def check_segment_place(name, sids, svals, V) -> float:
     log(f"  B2 {name}: M={sids.shape[0]} V={V}, longest segment {int(rows.max())}; "
         f"launches equal bitwise, = CPU twin bitwise, max |kernel - card twin| {err:.3g}")
     return err
+
+
+def texel_stream(seed: int, lanes: int = 262_144, shape=(32, 64), crowd: float = 0.9):
+    """An unsorted (ids (4 * lanes,) int32 flat texel ids, rows (4 * lanes,
+    4) float32 cotangents, H * W) stream of one bilinear environment lookup
+    from numpy with a seed, skewed as the camera rays of a path's first
+    bounce are: a ``crowd`` share of the lanes look into a 0.1 x 0.2 window
+    of (u, v) (a few dozen texels of the 32x64 map), the rest anywhere. The
+    ids are the four taps of ``texture.sample_bilinear`` (repeat wrapping),
+    tap-major, as ``texture._texels`` stacks them. 262,144 lanes is one
+    512x512 lookup: 1,048,576 rows onto 2,048 texels."""
+    rs = np.random.RandomState(seed)
+    h, w = shape
+    near = rs.rand(lanes) < crowd
+    u = np.where(near, rs.uniform(0.45, 0.55, lanes), rs.uniform(0.0, 1.0, lanes))
+    v = np.where(near, rs.uniform(0.4, 0.6, lanes), rs.uniform(0.0, 1.0, lanes))
+    x0 = np.floor(u * w - 0.5).astype(np.int64) % w
+    y0 = np.floor(v * h - 0.5).astype(np.int64) % h
+    x1, y1 = (x0 + 1) % w, (y0 + 1) % h
+    ids = np.concatenate([y0 * w + x0, y0 * w + x1, y1 * w + x0, y1 * w + x1])
+    rows = (rs.standard_normal((ids.shape[0], 4))
+            * rs.choice([1e-3, 1.0, 30.0], (ids.shape[0], 1))).astype(np.float32)
+    return ids.astype(np.int32), rows, h * w
+
+
+def check_texel_place(name, sids, rows, n) -> int:
+    """The texel placement's kernel against its twin on the card, for a
+    sorted stream: two launches bitwise equal, and bitwise the twin run on
+    a CPU copy (the same fixed chunk order). Returns the longest segment."""
+    from tracer_torch.kernels import texel_place
+
+    k1 = texel_place.place(sids, rows, n)
+    k2 = texel_place.place(sids, rows, n)
+    torch.cuda.synchronize()
+    bits = lambda x: x.cpu().view(torch.int32)
+    if not torch.equal(bits(k1), bits(k2)):
+        raise AssertionError(f"texel_place {name}: two launches differ")
+    cpu = texel_place.place_reference(sids.cpu(), rows.cpu(), n)
+    if not torch.equal(bits(k1), cpu.view(torch.int32)):
+        bad = int((bits(k1) != cpu.view(torch.int32)).sum())
+        raise AssertionError(f"texel_place {name}: {bad} sums differ from the CPU twin")
+    longest = int(torch.bincount(sids.long(), minlength=n).max()) if sids.numel() else 0
+    log(f"  texel_place {name}: M={sids.shape[0]} texels={n}, longest segment {longest}; "
+        "launches equal bitwise, = CPU twin bitwise")
+    return longest
+
+
+def texel_times(dev, card: str) -> dict:
+    """The texel placement at the main path's shape (one 512x512 W9 E1
+    lookup: ``texel_stream``'s 1,048,576 rows onto 2,048 texels), checked
+    against its twin, then timed: the kernel (CUDA events, and device time
+    by the profiler), its byte bound (an int32 id and four float32 a row
+    read, four float32 a texel written), the twin, the whole backward it
+    serves (the stable sort, the permutation of the rows, the kernel), and
+    PyTorch's index backward, ``index_put_(accumulate=True)`` of the
+    unsorted stream (``library_ms``)."""
+    from tracer_torch.kernels import texel_place
+
+    ids, rows, n = texel_stream(0)
+    ids_d, rows_d = torch.as_tensor(ids, device=dev), torch.as_tensor(rows, device=dev)
+    sids, perm = torch.sort(ids_d, stable=True)
+    srows = rows_d[perm].contiguous()
+    longest = check_texel_place("W9 E1 512x512 first-bounce lookup (synthetic)", sids, srows, n)
+    kern = lambda: texel_place.place(sids, srows, n)
+    twin = lambda: texel_place.place_reference(sids, srows, n)
+
+    cols = torch.arange(4, device=dev)
+
+    def whole():  # as texture._GatherTexels.backward
+        s, p = torch.sort(ids_d, stable=True)
+        return texel_place.place(s, rows_d[p[:, None], cols], n)
+
+    ids_l = ids_d.long()
+    lib = lambda: torch.zeros((n, 4), dtype=torch.float32, device=dev).index_put_(
+        (ids_l,), rows_d, accumulate=True)
+    for fn in (kern, twin, whole, lib):
+        fn()
+    out = dict(rows=int(ids.shape[0]), texels=n, longest=longest)
+    out["ms"] = cuda_events_ms(kern, 100)
+    out["device_ms"] = profiled_device_ms(kern, 100, "texel_place_")
+    out["plain_ms"] = cuda_events_ms(twin, 20)
+    out["backward_ms"] = cuda_events_ms(whole, 50)
+    out["library_ms"] = cuda_events_ms(lib, 10)
+    out["bound_ms"], out["bound_by"] = bound_ms(ids.shape[0] * (4 + 16) + n * 16,
+                                                ids.shape[0] * 4)
+    log(f"[time] texel_place W9 E1 512x512 lookup (M={out['rows']}, texels={n}, longest "
+        f"segment {longest}): kernel {out['ms']:.4f} ms per call (CUDA events; device time "
+        f"{out['device_ms']:.4f} ms by the profiler), twin {out['plain_ms']:.4f} ms, sort + "
+        f"permute + kernel {out['backward_ms']:.4f} ms, index_put_(accumulate=True) "
+        f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}); {card}")
+    if out["ms"] > out["library_ms"]:
+        raise AssertionError("texel_place is slower than index_put_(accumulate=True)")
+    return out
 
 
 # The card's peaks for the bound of each kernel (the H100 SXM data sheet, at
@@ -2020,7 +2122,7 @@ def pgrad_phase(dev, card: str, kernels) -> dict:
     launches and B2's largest error for the ``kernels`` line."""
     from tracer_torch import convert
     from tracer_torch.diff import grad as G
-    from tracer_torch.kernels import scatter_vn, super_hits, treelet_hits
+    from tracer_torch.kernels import scatter_vn, super_hits, texel_place, treelet_hits
     from tracer_torch.render import integrator
     from tracer_torch.scenes.build import build_scene
     from tracer_torch.scenes.registry import get_scene
@@ -2128,29 +2230,36 @@ def pgrad_phase(dev, card: str, kernels) -> dict:
     wtarget = torch.zeros((wn, 3), dtype=torch.float32, device=dev)
     wstep = lambda: out.__setitem__("w", G.grad_scene(wscene, wcfg, wtarget))
     reset()
+    texel_place.KERNEL_LAUNCHES = texel_place.REFERENCE_CALLS = 0
     wstep()
     wfirst = out["w"]
-    per_step = [treelet_hits.KERNEL_LAUNCHES, scatter_vn.KERNEL_LAUNCHES]
+    per_step = [treelet_hits.KERNEL_LAUNCHES, scatter_vn.KERNEL_LAUNCHES,
+                texel_place.KERNEL_LAUNCHES]
     w_ms, w_host_ms, w_peak = timed_steps(wstep, 2)
     b3_launches, b2_launches = treelet_hits.KERNEL_LAUNCHES, scatter_vn.KERNEL_LAUNCHES
-    twin_calls = sum(m.REFERENCE_CALLS for m in kernels)
+    texel_launches = texel_place.KERNEL_LAUNCHES
+    twin_calls = sum(m.REFERENCE_CALLS for m in (*kernels, texel_place))
     ga = grad_checks("W9 E1", out["w"], wfirst, ("camera.eye", "env.data"))
-    # One more step with spies: bounces, and B2's sorted corner streams.
-    streams, bounces = [], []
-    place, bounce = scatter_vn.segment_place, integrator._bounce
+    # One more step with spies: bounces, B2's sorted corner streams and the
+    # texel placement's sorted streams.
+    streams, bounces, texel_streams = [], [], []
+    place, bounce, tplace = scatter_vn.segment_place, integrator._bounce, texel_place.place
     scatter_vn.segment_place = lambda *a: streams.append(a) or place(*a)
     integrator._bounce = lambda *a: bounces.append(1) or bounce(*a)
+    texel_place.place = lambda *a: texel_streams.append(a) or tplace(*a)
     try:
         wstep()
     finally:
-        scatter_vn.segment_place, integrator._bounce = place, bounce
+        scatter_vn.segment_place, integrator._bounce, texel_place.place = place, bounce, tplace
     rows = [a[0].shape[0] for a in streams]
     log(f"[pgrad] W9 E1 Bunny {wcfg.width}x{wcfg.height} (cut from 512x512), max_depth "
         f"{wcfg.max_depth}, seeded environment, loop scan, target zeros; 2 steps after 1: "
         f"{w_ms:.3f} ms/step (CUDA events), {w_host_ms:.3f} ms/step (host clock), peak memory "
         f"{w_peak / gib:.3f} GiB; {len(bounces)} bounces per step; B3 launches {b3_launches} "
         f"and B2 launches {b2_launches} over 3 steps (first step {per_step}), twin calls "
-        f"{twin_calls}; B2 rows per launch {rows} (mean {np.mean(rows):.0f}); {card}")
+        f"{twin_calls}; B2 rows per launch {rows} (mean {np.mean(rows):.0f}); texel_place "
+        f"launches {texel_launches} over 3 steps (first step {per_step[2]}), rows per launch "
+        f"{[a[0].shape[0] for a in texel_streams]}; {card}")
     if super_hits.KERNEL_LAUNCHES or twin_calls:
         raise AssertionError("the W9 E1 gradient ran B1 or a twin")
     # B2 places the rows of every bounce but the last: the last bounce's rows
@@ -2160,6 +2269,10 @@ def pgrad_phase(dev, card: str, kernels) -> dict:
             per_step[1] or b3_launches < 3 * len(bounces):
         raise AssertionError("B2 did not run once per bounce but the last, or B3 not on every "
                              "bounce")
+    # Every bounce looks up the environment for every lane (4 taps).
+    if per_step[2] != len(bounces) or texel_launches != 3 * per_step[2] or \
+            [a[0].shape[0] for a in texel_streams] != [4 * wn] * len(bounces):
+        raise AssertionError("the texel placement did not run once per bounce on every lane")
     log("[pgrad] W9 E1 every leaf finite; two steps equal bitwise on every leaf; "
         + ", ".join(f"{k} sum|g| {float(np.abs(a).sum()):.6g}" for k, a in ga.items()
                     if np.abs(a).sum() > 0))
@@ -2175,7 +2288,11 @@ def pgrad_phase(dev, card: str, kernels) -> dict:
     seeded = torch.as_tensor(rs.standard_normal(tuple(svals.shape)).astype(np.float32),
                              device=dev)
     err = max(err, check_segment_place("W9 E1 bounce 2 ids, seeded cotangents", sids, seeded, v))
-    return dict(b2_launches=b2_launches, b3_launches=b3_launches, b2_err=err)
+    # 9e. The texel placement against its twin on bounce 1's lookup (placed
+    # last): the camera rays' crowded texels, with their real cotangents.
+    check_texel_place("W9 E1 path gradient bounce 1 lookup", *texel_streams[-1])
+    return dict(b2_launches=b2_launches, b3_launches=b3_launches, b2_err=err,
+                texel_launches=texel_launches)
 
 
 def sun_phase(dev, card: str, kernels) -> dict:
@@ -2970,7 +3087,7 @@ def main() -> int:
     from tracer_torch.diff import grad as G
     from tracer_torch.geometry.device import refresh_tri_table
     from tracer_torch.kernels import (brute_hits, phase_a_walk, scatter_vn, super_hits,
-                                      super_occluded, treelet_hits)
+                                      super_occluded, texel_place, treelet_hits)
     from tracer_torch.render import integrator, progressive
     from tracer_torch.scenes.build import build_scene
     from tracer_torch.scenes.registry import get_scene
@@ -2988,7 +3105,7 @@ def main() -> int:
         t = time.perf_counter()
         return mod.build()[1], time.perf_counter() - t
 
-    built = (*kernels, phase_a_walk, brute_hits)
+    built = (*kernels, phase_a_walk, brute_hits, texel_place)
     with ThreadPoolExecutor(len(built)) as pool:
         builds = list(pool.map(timed_build, built))
     for mod, (build_log, secs) in zip(built, builds):
@@ -3467,6 +3584,7 @@ def main() -> int:
         f"{b2_bound_ms:.4f} ms ({b2_by}); {card}")
     if b2_ms > b2_lib_ms:
         raise AssertionError("B2 is slower than index_add_")
+    tp = texel_times(dev, card)
     treelet_hits.hits(*args_b3, False)
     b3_ms = cuda_events_ms(lambda: treelet_hits.hits(*args_b3, False), 20)
     b3_stats = {}
@@ -3566,6 +3684,16 @@ def main() -> int:
         "bound_ms": b2_bound_ms,
         "bound_by": b2_by,
         "library_ms": b2_lib_ms,
+    }, {
+        "name": "texel_place.place",
+        "route": "cuda",
+        "source": "tracer_torch/csrc/texel_place.cu",
+        "replaces": "none (the gathers' backward is XLA's in the JAX package, "
+                    "tracer/render/texture.py)",
+        "launches": pg["texel_launches"],
+        "max_abs_err": 0.0,
+        **{k: tp[k] for k in ("ms", "device_ms", "plain_ms", "backward_ms", "bound_ms",
+                              "bound_by", "library_ms")},
     }, {
         "name": "treelet_hits.hits",
         "route": "cuda",

@@ -32,6 +32,11 @@ Tolerances:
 * B2: bit for bit against its twin run on a CPU copy (both sum in the
   same fixed order: stream order within each chunk of ``CHUNK_ROWS`` rows,
   then the chunks' partials in chunk order) and between two launches.
+* The texel placement (``texel_place``, B2's passes at a row width of 4):
+  the same, on a lookup's 1,048,576 rows crowded onto a 32x64 map's
+  texels; the texture gradient through it on the card equals the CPU's
+  bit for bit (the cotangent rows are the same float32 products on both
+  devices, and the placement sums in the same fixed order).
 * Packet phase A's walk kernel: every call's state and emissions bit for
   bit against ``_body`` on a copy of the same buffers, and whole queries
   through it bit for bit against the same queries through ``_body``: both
@@ -82,15 +87,16 @@ import pytest
 import torch
 
 from chip_smoke import (FIXTURES, OCCLUSION_CASES, WALK_FIELDS, brute_case, lane_tiles,
-                        narrow_quarters, occlusion_case, scatter_streams, seeded_texture, sun_desc,
-                        super_lanes, synthetic, synthetic_tiles, walk_buffers, walk_twin,
-                        with_fixture_model, with_seeded_env, with_standin_mesh)
+                        narrow_quarters, occlusion_case, scatter_streams, seeded_env,
+                        seeded_texture, sun_desc, super_lanes, synthetic, synthetic_tiles,
+                        texel_stream, walk_buffers, walk_twin, with_fixture_model,
+                        with_seeded_env, with_standin_mesh)
 from tracer_torch import convert, obs
 from tracer_torch.accel import flat, lbvh, packet, treelet
 from tracer_torch.diff import grad as G
 from tracer_torch.geometry.procedural import bumpy_blob
 from tracer_torch.kernels import (brute_hits, intersect, phase_a_walk, scatter_vn,
-                                  super_hits, super_occluded, treelet_hits)
+                                  super_hits, super_occluded, texel_place, treelet_hits)
 from tracer_torch.kernels.intersect import Rays, make_rays
 from tracer_torch.render import integrator, progressive
 from tracer_torch.render import texture as tex
@@ -365,6 +371,111 @@ def test_segment_place_rejects_what_it_cannot_take(cuda):
         scatter_vn.segment_place(ids, vals[:, :5], 3)
     with pytest.raises(ValueError):
         scatter_vn.segment_place(ids.cpu(), vals, 3)
+
+
+def _sorted_texels(cuda, lanes: int, seed: int = 0):
+    ids, rows, n = texel_stream(seed, lanes)
+    sids, perm = torch.sort(torch.as_tensor(ids, device=cuda), stable=True)
+    return sids, torch.as_tensor(rows, device=cuda)[perm].contiguous(), n
+
+
+@pytest.mark.cuda
+def test_texel_place_kernel_matches_twin_on_a_crowded_lookup(cuda):
+    """One 512x512 lookup's 1,048,576 rows onto 2,048 texels, crowded as
+    the camera rays of a path's first bounce are: two launches and the CPU
+    twin agree bit for bit, and the kernel served both calls."""
+    sids, srows, n = _sorted_texels(cuda, 262_144)
+    assert sids.shape[0] == 1_048_576 and n == 2048
+    launches, calls = texel_place.KERNEL_LAUNCHES, texel_place.REFERENCE_CALLS
+    k1 = texel_place.place(sids, srows, n)
+    k2 = texel_place.place(sids, srows, n)
+    torch.cuda.synchronize()
+    assert texel_place.KERNEL_LAUNCHES == launches + 2
+    assert texel_place.REFERENCE_CALLS == calls
+    want = texel_place.place_reference(sids.cpu(), srows.cpu(), n)
+    assert _bits_equal(k1, k2) and _bits_equal(k1, want)
+    longest = int(torch.bincount(sids.long(), minlength=n).max())
+    assert longest > 50 * texel_place.CHUNK_ROWS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [32, 512])
+def test_texel_place_kernel_matches_twin_at_other_chunk_lengths(cuda, rows, monkeypatch):
+    monkeypatch.setattr(texel_place, "CHUNK_ROWS", rows)
+    for seed in (1, 2):
+        sids, srows, n = _sorted_texels(cuda, 20_000, seed)
+        got = texel_place.place(sids, srows, n)
+        want = texel_place.place_reference(sids.cpu(), srows.cpu(), n)
+        assert _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_texel_place_kernel_edge_streams(cuda):
+    """An empty stream gives zeros; one row, and a stream below one chunk,
+    equal the twin."""
+    z = texel_place.place(torch.zeros(0, dtype=torch.int32, device=cuda),
+                          torch.zeros((0, 4), device=cuda), 2048)
+    assert torch.equal(z.cpu(), torch.zeros((2048, 4)))
+    for lanes in (1, 50):
+        sids, srows, n = _sorted_texels(cuda, lanes, 3)
+        got = texel_place.place(sids, srows, n)
+        assert _bits_equal(got, texel_place.place_reference(sids.cpu(), srows.cpu(), n))
+
+
+@pytest.mark.cuda
+def test_texel_place_rejects_what_it_cannot_take(cuda, monkeypatch):
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    rows = torch.zeros((4, 4), device=cuda)
+    launches = texel_place.KERNEL_LAUNCHES
+    for bad in ((ids.long(), rows), (ids, rows[:, :3]), (ids, rows.double()),
+                (ids.cpu(), rows), (ids[:3], rows)):
+        with pytest.raises(ValueError):
+            texel_place.place(*bad, 8)
+    monkeypatch.setattr(texel_place, "CHUNK_ROWS", 64)
+    with pytest.raises(ValueError, match="built for chunks"):
+        texel_place.place(ids, rows, 8)
+    assert texel_place.KERNEL_LAUNCHES == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rgbe", [False, True], ids=["ldr", "rgbe"])
+def test_texture_gradient_on_card_matches_cpu(cuda, rgbe, monkeypatch):
+    """The bilinear environment lookup's gradient of the map through the
+    texel placement, crowded directions included: the card ran the kernel
+    once, on its own sorted rows it equals the CPU twin bit for bit, and
+    the gradient equals the CPU's bit for bit on an LDR map. On an RGBE map
+    the exponent's cotangent rows are sums over the three colour channels,
+    which the card reduces in another order, so there the gradient is held
+    to the CPU's at rtol 1e-5 with an atol of 1e-6 of its largest
+    magnitude."""
+    rs = np.random.RandomState(4)
+    env = torch.as_tensor(seeded_env(rgbe, 5))
+    d = rs.standard_normal((65_536, 3)).astype(np.float32)
+    d[:40_000] = [0.05, -0.1, -1.0] + 0.01 * d[:40_000]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    g = rs.standard_normal((65_536, 3)).astype(np.float32)
+    kind = tex.ENV_RGBE if rgbe else tex.ENV_LDR
+    placed, place = [], texel_place.place
+    monkeypatch.setattr(texel_place, "place",
+                        lambda *a: placed.append((a, place(*a))) or placed[-1][1])
+    grads = []
+    for dev in ("cpu", cuda):
+        leaf = env.to(dev).clone().requires_grad_(True)
+        out = tex.environment_map(tex.TextureBuf(leaf, kind), torch.as_tensor(d, device=dev))
+        launches = texel_place.KERNEL_LAUNCHES
+        (out * torch.as_tensor(g, device=dev)).sum().backward()
+        if dev is cuda:
+            assert texel_place.KERNEL_LAUNCHES == launches + 1
+        grads.append(leaf.grad.cpu())
+    (sids, rows, n), got = placed[-1]
+    assert _bits_equal(got, texel_place.place_reference(sids.cpu(), rows.cpu(), n))
+    assert float(grads[0].abs().sum()) > 0
+    if not rgbe:
+        assert _bits_equal(grads[0], grads[1])
+    else:
+        scale = float(grads[0].abs().max())
+        np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(), rtol=1e-5,
+                                   atol=1e-6 * scale)
 
 
 @pytest.mark.cuda

@@ -27,8 +27,9 @@ to the sky at this size. More than 128 triangles, so rows are fetched by
 * Spans on and off give the same gradient bit for bit; ``grad.place``
   opens once a fetched bounce; ``scatter_vn.rows`` and
   ``scatter_vn.out_rows`` equal the rows B2 placed and the rows of the
-  tables it wrote; ``grad.held_bytes`` is 0 on the CPU and positive on the
-  card.
+  tables it wrote; ``texel_place.rows`` and ``texel_place.out_rows`` count
+  each bounce's environment lookup, 4 taps a lane, into the map's texels;
+  ``grad.held_bytes`` is 0 on the CPU and positive on the card.
 * ``render_mean``'s divisor made once (``vec.div``) gives the gradient of
   the division by a fresh ``torch.tensor`` bit for bit.
 """
@@ -47,7 +48,7 @@ from benchmark.tests import faults, path_grad_faults
 from tracer_torch import obs
 from tracer_torch.diff import grad as G
 from tracer_torch.geometry.obj import MaterialData, MeshData
-from tracer_torch.kernels import scatter_vn
+from tracer_torch.kernels import scatter_vn, texel_place
 from tracer_torch.render import texture
 from tracer_torch.scenes import build as build_mod
 from tracer_torch.scenes.registry import get_scene
@@ -174,6 +175,21 @@ def test_scatter_vn_counters_equal_the_rows_placed(case, monkeypatch):
     # Every lane's three corners a placement; the bowl's sphere has 208 vertices.
     assert c["scatter_vn.rows"] == placed["rows"] == 3 * SIZE * SIZE * placed["calls"]
     assert c["scatter_vn.out_rows"] == placed["out_rows"] == 208 * placed["calls"]
+
+
+def test_texel_place_counters_equal_the_lookups(case):
+    """Every bounce looks up the environment for every lane: one placement
+    of 4 taps x SIZE^2 lanes into the 32x64 map's texels a bounce. B2's
+    counters count vertex corners alone."""
+    scene, cfg, target, _ = case
+    calls = texel_place.REFERENCE_CALLS
+    _program(scene, cfg, target)
+    c = obs.counters()
+    bounces = c["integrator.bounces"]
+    assert texel_place.REFERENCE_CALLS - calls == bounces > 2
+    assert c["texel_place.rows"] == 4 * SIZE * SIZE * bounces
+    assert c["texel_place.out_rows"] == 32 * 64 * bounces
+    assert c["scatter_vn.rows"] == 3 * SIZE * SIZE * (bounces - 1)
 
 
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])

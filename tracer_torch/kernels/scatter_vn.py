@@ -7,7 +7,8 @@ cotangents of the hit-attribute fetch are sorted by vertex id and summed
 into a dense (V, 6) table (vertex xyz, normal xyz).
 
 * ``segment_place`` — the entry point. For CUDA tensors it launches the
-  hand-written kernel ``tracer_torch/csrc/scatter_vn.cu`` (built with
+  hand-written kernel ``tracer_torch/csrc/scatter_vn.cu`` (the two passes
+  of ``csrc/segment_sum.cuh`` at a row width of 6; built with
   ``nvcc`` for ``sm_90a`` at first use, bound with ctypes) or raises; for
   CPU tensors it runs ``segment_place_reference``. It never falls back from
   CUDA to the twin.
@@ -32,24 +33,24 @@ import torch
 
 from tracer_torch import obs
 from tracer_torch._build import CSRC, nvcc_command, shared_library
+from tracer_torch.kernels import segment_sum
 
 KERNEL_LAUNCHES = 0
 REFERENCE_CALLS = 0
 
 SOURCE = CSRC / "scatter_vn.cu"
 COLS = 6  # vertex xyz + normal xyz cotangents
-# Rows per chunk of the fixed summation order (one CTA thread per row). The
-# kernel is compiled for 256 and for 32 and 512, which the card tests run;
-# the wrapper refuses any other length.
+# Rows per chunk of the fixed summation order (one CTA thread per row); one
+# of segment_sum.KERNEL_CHUNK_ROWS, the lengths the kernel is compiled for.
 CHUNK_ROWS = 256
-KERNEL_CHUNK_ROWS = (32, 256, 512)
 
 
 @functools.cache
 def build() -> tuple[ctypes.CDLL, str]:
     """Compile (first call only) and load the kernel library; returns the
     library and the compiler's output (register and shared-memory use)."""
-    path, log = shared_library("scatter_vn", nvcc_command(), [SOURCE])
+    path, log = shared_library("scatter_vn", nvcc_command(), [SOURCE],
+                               headers=segment_sum.HEADERS)
     lib = ctypes.CDLL(str(path))
     ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
     lib.segment_place_launch.restype = ctypes.c_int
@@ -74,60 +75,18 @@ def segment_place(sids: torch.Tensor, svals: torch.Tensor, V: int) -> torch.Tens
     if svals.device.type != "cuda":
         raise RuntimeError(f"scatter_vn: unsupported device {svals.device}")
     global KERNEL_LAUNCHES
-    M = sids.shape[0]
-    if sids.dtype != torch.int32 or sids.ndim != 1:
-        raise ValueError(f"scatter_vn: ids must be (M,) int32, got {tuple(sids.shape)} {sids.dtype}")
-    if svals.dtype != torch.float32 or svals.shape != (M, COLS):
-        raise ValueError(f"scatter_vn: payload must be ({M}, {COLS}) float32, "
-                         f"got {tuple(svals.shape)} {svals.dtype}")
-    if sids.device != svals.device:
-        raise ValueError(f"scatter_vn: ids on {sids.device}, payload on {svals.device}")
-    if V < 0:
-        raise ValueError(f"scatter_vn: V = {V}")
-    if CHUNK_ROWS not in KERNEL_CHUNK_ROWS:
-        raise ValueError(f"scatter_vn: the kernel is built for chunks of {KERNEL_CHUNK_ROWS} "
-                         f"rows, not {CHUNK_ROWS}")
-    ids = sids.contiguous()
-    vals = svals.contiguous()
-    if vals.data_ptr() % 16:
-        vals = vals.clone()  # a fresh allocation: the kernel loads 16 bytes at a time
-    out = torch.empty((V, COLS), dtype=torch.float32, device=svals.device)
-    n_chunks = max(1, -(-M // CHUNK_ROWS))
-    head = torch.empty((n_chunks, COLS), dtype=torch.float32, device=svals.device)
-    tail = torch.empty_like(head)
-    lib, _ = build()
-    with torch.cuda.device(svals.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.segment_place_launch(ids.data_ptr(), vals.data_ptr(), out.data_ptr(),
-                                       head.data_ptr(), tail.data_ptr(), M, V,
-                                       CHUNK_ROWS, stream)
-    if err != 0:
-        raise RuntimeError(f"scatter_vn: kernel launch failed (cudaError {err})")
+    out = segment_sum.launch("scatter_vn", build()[0].segment_place_launch, sids, svals, V,
+                             COLS, CHUNK_ROWS)
     KERNEL_LAUNCHES += 1
     return out
 
 
 def segment_place_reference(sids: torch.Tensor, svals: torch.Tensor, V: int) -> torch.Tensor:
-    """Plain-PyTorch twin of ``segment_place``: same arguments, same sums.
-
-    The first ``index_add_`` places the rows into one partial per (vertex,
-    chunk of ``CHUNK_ROWS`` rows) pair, numbered in stream order; the second
-    places the partials into the (V, 6) table. On the CPU each adds in index
-    order from 0.0, which is the kernel's order.
-    """
+    """Plain-PyTorch twin of ``segment_place``: same arguments, same sums
+    (``segment_sum.chunk_order_sum`` at ``CHUNK_ROWS``)."""
     global REFERENCE_CALLS
     REFERENCE_CALLS += 1
-    ids = sids.long()
-    M, dev = ids.shape[0], svals.device
-    chunk = torch.arange(M, device=dev) // CHUNK_ROWS
-    first = torch.ones(M, dtype=torch.bool, device=dev)
-    first[1:] = (ids[1:] != ids[:-1]) | (chunk[1:] != chunk[:-1])
-    partial = torch.cumsum(first, 0) - 1
-    n_part = int(first.sum())
-    parts = torch.zeros((n_part, svals.shape[1]), dtype=svals.dtype, device=dev)
-    parts.index_add_(0, partial, svals)
-    out = torch.zeros((V, svals.shape[1]), dtype=svals.dtype, device=dev)
-    return out.index_add_(0, ids[first], parts)
+    return segment_sum.chunk_order_sum(sids, svals, V, CHUNK_ROWS)
 
 
 def scatter_add_vn(flat_idx: torch.Tensor, flat_g: torch.Tensor, V: int) -> torch.Tensor:
